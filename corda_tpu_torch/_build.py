@@ -1,10 +1,14 @@
 """Builds the port's native libraries from the repository's sources.
 
-Two shared libraries, both with a plain C interface loaded through ctypes:
+Four shared libraries, all with a plain C interface loaded through ctypes:
 
-- ``scalarmath``    — ``native/scalarmath.cpp`` (host scalar prep), by g++;
-- ``ed25519_split`` — ``corda_tpu_torch/csrc/ed25519_split.cu`` (the
-  Hopper split-k verify kernel), by nvcc for ``sm_90a``.
+- ``scalarmath``       — ``native/scalarmath.cpp`` (host scalar prep), by g++;
+- ``ed25519_split``    — ``csrc/ed25519_split.cu`` (kernel B2, Ed25519
+  split-k verify),
+- ``secp256k1_hybrid`` — ``csrc/secp256k1_hybrid.cu`` (kernel B3, secp256k1
+  hybrid-GLV verify) and
+- ``secp256r1_split``  — ``csrc/secp256r1_split.cu`` (kernel B4, secp256r1
+  half-gcd split verify), each by nvcc for ``sm_90a``.
 
 Each is built at first use into ``corda_tpu_torch/_build/`` (listed in
 ``.gitignore``) under a name that carries a hash of its sources and flags, so
@@ -35,6 +39,10 @@ CSRC = os.path.join(_PKG, "csrc")
 
 #: Hopper target: ``sm_90a`` (wgmma/setmaxnreg exist only there).
 NVCC_ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+#: nvcc flags of every kernel library (``-Xptxas -v``: the register and
+#: spill report lands in ``BUILD_LOG``).
+_NVCC_FLAGS = NVCC_ARCH + ["-O3", "-std=c++17", "-shared", "-Xcompiler",
+                           "-fPIC", "-Xptxas", "-v"]
 
 
 class KernelError(RuntimeError):
@@ -74,8 +82,19 @@ _TARGETS = {
     "ed25519_split": {
         "sources": [os.path.join(CSRC, "ed25519_split.cu")],
         "deps": [os.path.join(CSRC, "field25519.cuh")],
-        "flags": NVCC_ARCH + ["-O3", "-std=c++17", "-shared",
-                              "-Xcompiler", "-fPIC", "-Xptxas", "-v"],
+        "flags": _NVCC_FLAGS,
+        "compiler": nvcc_path,
+    },
+    "secp256k1_hybrid": {
+        "sources": [os.path.join(CSRC, "secp256k1_hybrid.cu")],
+        "deps": [os.path.join(CSRC, "field_k1.cuh")],
+        "flags": _NVCC_FLAGS,
+        "compiler": nvcc_path,
+    },
+    "secp256r1_split": {
+        "sources": [os.path.join(CSRC, "secp256r1_split.cu")],
+        "deps": [os.path.join(CSRC, "field_p256.cuh")],
+        "flags": _NVCC_FLAGS,
         "compiler": nvcc_path,
     },
 }

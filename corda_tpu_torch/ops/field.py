@@ -1,27 +1,31 @@
-"""p25519 field arithmetic: host limb helpers and the plain PyTorch engine.
+"""Field arithmetic: host limb helpers and the plain PyTorch engine.
 
-Port of corda_tpu/ops/field.py for the Ed25519 slice. Three parts:
+Port of corda_tpu/ops/field.py. Three parts:
 
 - **Host helpers**, bit-identical copies of the JAX package's:
   ``to_limbs``/``from_limbs`` (16-bit little-endian limbs), ``bucket_size``
   (power-of-two batch padding) and ``scalars_to_bits`` (MSB-first bit planes).
-- **The plain PyTorch engine** over p = 2^255 - 19: ``mul``, ``sqr``,
-  ``add``, ``sub``, ``mul_const``, ``canon`` and ``inv25519`` on
+- **The plain PyTorch engine** over the three primes of the verifiers,
+  p25519 = 2^255 - 19, PSECP (secp256k1) and PSECR1 (P-256): ``mul``,
+  ``sqr``, ``add``, ``sub``, ``mul_const``, ``canon`` and ``is_zero`` take
+  the prime as ``p`` (default p25519), plus ``inv25519``, on
   ``int64[..., 16]`` tensors of 16-bit limbs. It is the plain version that
   the CPU tests hold against the JAX engine and that ``chip_smoke.py`` holds
-  the CUDA kernel against. Contract: every limb in [0, 2^17); the value is
-  any residue below 2^257 (not reduced below p). Products of two limbs stay
-  below 2^34 and a column of 16 of them below 2^38, so int64 lanes never
-  overflow; ``canon`` is the only operation that reduces fully.
+  the CUDA kernels against. Contract: every limb is signed with magnitude
+  below 2^17; the value is any integer of that form congruent to the
+  residue (not reduced). Products of two limbs stay below 2^34 and a column
+  of 16 of them below 2^38, so int64 lanes never overflow; ``canon`` is the
+  only operation that reduces fully, and only ``canon`` results have to
+  agree with the JAX engine, whose relaxed limbs differ.
 - ``device_table_cache``: per-device cache of the constant lookup tables the
   kernels take as arguments.
 
-The CUDA device functions of the same engine (8 x 32-bit limbs) are in
-``csrc/field25519.cuh``; only ``canon`` results must agree between the two
-layouts.
+The CUDA device functions of the same engine (8 x 32-bit words) are in
+``csrc/field25519.cuh``, ``csrc/field_k1.cuh`` and ``csrc/field_p256.cuh``.
 """
 from __future__ import annotations
 
+import functools
 import threading
 
 import numpy as np
@@ -32,7 +36,9 @@ LIMB_BITS = 16
 MASK = (1 << LIMB_BITS) - 1
 
 P25519 = 2**255 - 19
-#: 2^256 mod p: a carry out of limb 15 re-enters limb 0 times 38.
+PSECP = 2**256 - 2**32 - 977
+PSECR1 = 0xFFFFFFFF00000001000000000000000000000000FFFFFFFFFFFFFFFFFFFFFFFF
+#: 2^256 mod p25519: a carry out of limb 15 re-enters limb 0 times 38.
 FOLD25519 = 38
 
 
@@ -90,26 +96,70 @@ def scalars_to_bits(xs, nbits: int = 256) -> np.ndarray:
 
 
 # ---------------------------------------------------------------------------
-# Plain PyTorch p25519 engine (int64 lanes, 16-bit limbs, limbs < 2^17)
+# Plain PyTorch engine (int64 lanes, 16-bit signed limbs, |limb| < 2^17)
 # ---------------------------------------------------------------------------
 
-def _offset_dominating(limb_bound: int, p: int = P25519) -> list[int]:
-    """Limbs of a multiple of p whose every limb is >= ``limb_bound``:
-    adding it before subtracting a contract element keeps every limb
-    non-negative without changing the residue."""
-    need = [limb_bound] * NLIMB
-    s = sum(b << (LIMB_BITS * i) for i, b in enumerate(need))
-    m = s // p + 1
-    r = m * p - s                     # in (0, p]: fits 16 limbs
-    digits = [need[i] + ((r >> (LIMB_BITS * i)) & MASK) for i in range(NLIMB)]
-    assert sum(d << (LIMB_BITS * i) for i, d in enumerate(digits)) == m * p
-    return digits
+#: 2^256 mod p for each prime, as signed coefficients on 16-bit limbs:
+#: a carry out of limb 15 (weight 2^256) re-enters limb ``off`` times
+#: ``coef``. p25519: 38; secp256k1: 2^32 + 977; P-256 (Solinas):
+#: 2^224 - 2^192 - 2^96 + 1.
+_FOLD_SPEC = {
+    P25519: ((0, FOLD25519),),
+    PSECP: ((0, 977), (2, 1)),
+    PSECR1: ((0, 1), (6, -1), (12, -1), (14, 1)),
+}
+for _p, _spec in _FOLD_SPEC.items():
+    assert sum(c << (LIMB_BITS * o) for o, c in _spec) == (1 << 256) % _p
+#: Exclusive bound of every limb's magnitude between operations.
+LIMB_BOUND = 1 << 17
 
 
-#: Subtraction offset: dominates every contract limb (< 2^17); its limbs
-#: are < 2^17 + 2^16, so a + OFF - b stays below 2^19 per limb.
-_SUB_OFFSET = _offset_dominating(1 << 17)
-_P_LIMBS = [int(v) for v in to_limbs(P25519)]
+def _fold_rows(p: int) -> list[list[int]]:
+    """Row k: 2^(256 + 16k) mod p (k = 0..14, the high product columns) as
+    small signed coefficients on limbs 0..15, found by re-applying the fold
+    spec to the highest limb at or above 16 until none is left."""
+    rows = []
+    for k in range(NLIMB - 1):
+        vec = [0] * (2 * NLIMB + 1)
+        vec[NLIMB + k] = 1
+        while any(vec[NLIMB:]):
+            q = max(i for i in range(NLIMB, len(vec)) if vec[i])
+            c, vec[q] = vec[q], 0
+            for off, coef in _FOLD_SPEC[p]:
+                vec[q - NLIMB + off] += c * coef
+        rows.append(vec[:NLIMB])
+        assert (sum(c << (LIMB_BITS * i) for i, c in enumerate(rows[-1]))
+                - (1 << (256 + LIMB_BITS * k))) % p == 0
+    return rows
+
+
+_FOLD_ROWS = {p: _fold_rows(p) for p in _FOLD_SPEC}
+#: Largest column of a product of two contract elements, and the bound of a
+#: limb after the high columns are folded down.
+_COL_BOUND = NLIMB * (LIMB_BOUND - 1) ** 2
+_MUL_BOUND = {p: _COL_BOUND * (1 + max(sum(abs(r[j]) for r in rows)
+                                       for j in range(NLIMB)))
+              for p, rows in _FOLD_ROWS.items()}
+assert max(_MUL_BOUND.values()) < (1 << 62)
+
+
+@functools.lru_cache(maxsize=None)
+def _passes(p: int, bound: int) -> int:
+    """Carry passes that bring limbs of magnitude <= ``bound`` under the
+    contract, from an exact walk of the bounds (a pass leaves
+    lo in [0, 2^16) plus the carries it receives, each at most
+    ceil(bound / 2^16) times its coefficient)."""
+    b = [bound] * NLIMB
+    for n in range(16):
+        if max(b) < LIMB_BOUND:
+            return n
+        hi = [(x + MASK) >> LIMB_BITS for x in b]
+        nb = [MASK + (hi[i - 1] if i else 0) for i in range(NLIMB)]
+        for off, coef in _FOLD_SPEC[p]:
+            nb[off] += abs(coef) * hi[NLIMB - 1]
+        b = nb
+    raise AssertionError("carry passes do not converge")
+
 
 _CONST_CACHE: dict = {}
 
@@ -123,19 +173,29 @@ def _const_tensor(vals, device) -> torch.Tensor:
     return t
 
 
-def const(v: int, device="cpu") -> torch.Tensor:
+def const(v: int, device="cpu", p: int = P25519) -> torch.Tensor:
     """Canonical limbs of the field constant ``v`` as an int64 (16,) tensor."""
-    return _const_tensor([int(x) for x in to_limbs(v % P25519)], device)
+    return _const_tensor([int(x) for x in to_limbs(v % p)], device)
 
 
-def _carry(v: torch.Tensor, passes: int) -> torch.Tensor:
-    """Parallel carry passes over 16 non-negative limbs: every limb keeps
-    its low 16 bits and hands the rest to the next limb; limb 15's carry
-    (weight 2^256) re-enters limb 0 times 38."""
-    for _ in range(passes):
+def _fold_vec(p: int, device) -> torch.Tensor:
+    vec = [0] * NLIMB
+    for off, coef in _FOLD_SPEC[p]:
+        vec[off] = coef
+    return _const_tensor(vec, device)
+
+
+def _carry(v: torch.Tensor, p: int, bound: int) -> torch.Tensor:
+    """Parallel carry passes until every limb is back under the contract:
+    each limb keeps its low 16 bits and hands the rest (an arithmetic
+    shift, so negative limbs carry negatively) to the next limb; limb 15's
+    carry re-enters through the fold spec."""
+    if _passes(p, bound):
+        fold = _fold_vec(p, v.device)
+    for _ in range(_passes(p, bound)):
         hi = v >> LIMB_BITS
-        lo = v & MASK
-        v = lo + torch.cat([hi[..., 15:] * FOLD25519, hi[..., :15]], dim=-1)
+        v = ((v & MASK) + torch.nn.functional.pad(hi[..., :15], (1, 0))
+             + hi[..., 15:] * fold)
     return v
 
 
@@ -151,41 +211,41 @@ def _columns(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return flat.reshape(*shape, 16, 31).sum(dim=-2)
 
 
-def mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """a·b mod p. Columns < 2^38; folding columns 16..30 times 38 onto
-    0..14 keeps them < 2^44; three carry passes bring every limb back
-    under 2^17 (2^44 → < 2^34 → < 2^19 → < 2^17)."""
+def mul(a: torch.Tensor, b: torch.Tensor, p: int = P25519) -> torch.Tensor:
+    """a·b mod p. Columns stay below 16·(2^17)^2 = 2^38 in magnitude; the 15
+    high columns fold onto the low 16 through the rows of 2^(256+16k) mod p
+    (``_FOLD_ROWS``), and carry passes bring the limbs back under 2^17."""
     cols = _columns(a, b)
-    lo = cols[..., :16]
-    hi = torch.nn.functional.pad(cols[..., 16:], (0, 1))     # (..., 16)
-    return _carry(lo + FOLD25519 * hi, 3)
+    rows = _const_tensor(tuple(x for r in _FOLD_ROWS[p] for x in r),
+                         a.device).view(NLIMB - 1, NLIMB)
+    v = cols[..., :16] + (cols[..., 16:].unsqueeze(-1) * rows).sum(dim=-2)
+    return _carry(v, p, _MUL_BOUND[p])
 
 
-def sqr(a: torch.Tensor) -> torch.Tensor:
-    return mul(a, a)
+def sqr(a: torch.Tensor, p: int = P25519) -> torch.Tensor:
+    return mul(a, a, p)
 
 
-def add(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """a + b mod p: limbs < 2^18, one carry pass → < 2^17."""
-    return _carry(a + b, 1)
+def add(a: torch.Tensor, b: torch.Tensor, p: int = P25519) -> torch.Tensor:
+    """a + b mod p: limbs below 2^18 in magnitude, carried back."""
+    return _carry(a + b, p, 2 * (LIMB_BOUND - 1))
 
 
-def sub(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """a - b mod p, borrow-free: a + OFF - b with OFF a multiple of p whose
-    limbs dominate b's; limbs stay in [0, 2^19), one pass → < 2^17."""
-    off = _const_tensor(_SUB_OFFSET, a.device)
-    return _carry(a + off - b, 1)
+def sub(a: torch.Tensor, b: torch.Tensor, p: int = P25519) -> torch.Tensor:
+    """a - b mod p: limbs are signed, so no offset is needed."""
+    return _carry(a - b, p, 2 * (LIMB_BOUND - 1))
 
 
-def mul_const(a: torch.Tensor, c: int) -> torch.Tensor:
+def mul_const(a: torch.Tensor, c: int, p: int = P25519) -> torch.Tensor:
     """a·c mod p for a small constant c (0 <= c < 2^20)."""
     if not 0 <= c < (1 << 20):
         raise ValueError("mul_const takes 0 <= c < 2^20")
-    return _carry(a * c, 2)
+    return _carry(a * c, p, c * (LIMB_BOUND - 1))
 
 
 def _sweep(v: torch.Tensor):
-    """Sequential exact carry: canonical 16-bit limbs plus the carry out."""
+    """Sequential exact carry: canonical 16-bit limbs plus the (signed)
+    carry out of limb 15."""
     out = []
     carry = torch.zeros_like(v[..., 0])
     for i in range(NLIMB):
@@ -195,29 +255,35 @@ def _sweep(v: torch.Tensor):
     return torch.stack(out, dim=-1), carry
 
 
-def _cond_sub_p(v: torch.Tensor) -> torch.Tensor:
+def _cond_sub_p(v: torch.Tensor, p: int) -> torch.Tensor:
     """v - p where v >= p, else v, for canonical limbs."""
     out = []
     borrow = torch.zeros_like(v[..., 0])
-    for i in range(NLIMB):
-        t = v[..., i] - _P_LIMBS[i] - borrow
+    for i, pl in enumerate(int(x) for x in to_limbs(p)):
+        t = v[..., i] - pl - borrow
         out.append(t & MASK)
         borrow = (t >> LIMB_BITS) & 1
     d = torch.stack(out, dim=-1)
     return torch.where((borrow == 0).unsqueeze(-1), d, v)
 
 
-def canon(a: torch.Tensor) -> torch.Tensor:
-    """Canonical limbs of the residue (value < p). The sweep leaves a carry
-    of at most 2 (value < 2^257); folding it times 38 and sweeping again
-    leaves at most 1, whose fold cannot carry again. The value is then
-    < 2^256 = 2p + 38, so two conditional subtractions of p finish."""
+def canon(a: torch.Tensor, p: int = P25519) -> torch.Tensor:
+    """Canonical limbs of the residue (value in [0, p)). A contract element
+    is L + c·2^256 with L in [0, 2^256) after a sweep and c in [-3, 2];
+    folding c·(2^256 mod p) back and sweeping leaves a carry in {-1, 0, 1},
+    and the second fold leaves a value in [0, 2^256) (2^256 mod p < 2^225
+    for all three primes); the third round is then a no-op kept as margin.
+    2^256 < 2p + 38, so two conditional subtractions of p finish."""
+    fold = _fold_vec(p, a.device)
     v, carry = _sweep(a)
-    for _ in range(2):
-        v = torch.cat([(v[..., :1] + FOLD25519 * carry.unsqueeze(-1)),
-                       v[..., 1:]], dim=-1)
-        v, carry = _sweep(v)
-    return _cond_sub_p(_cond_sub_p(v))
+    for _ in range(3):
+        v, carry = _sweep(v + carry.unsqueeze(-1) * fold)
+    return _cond_sub_p(_cond_sub_p(v, p), p)
+
+
+def is_zero(a: torch.Tensor, p: int = P25519) -> torch.Tensor:
+    """a ≡ 0 (mod p), per item (bool (...,))."""
+    return (canon(a, p) == 0).all(dim=-1)
 
 
 def _sqr_n(a: torch.Tensor, n: int) -> torch.Tensor:

@@ -21,18 +21,17 @@ one priority in-flight slot so bulk pressure cannot starve them.
 
 Differences from the JAX batcher: ``device`` is a ``torch.device`` (default
 ``"cuda"``, which raises when CUDA is absent) and every launch runs on a
-CUDA stream the batcher owns, and the kernel is built when a CUDA batcher
-is made; a kernel that does not build or launch (``KernelError``) fails the
-batch's futures instead of falling back to the host, while the host
-fallback and breakers still answer every other dispatch failure; ``mesh=``
-is not supported yet; only Ed25519
-has a device bucket in this slice (secp256k1/r1 checks take the host queue);
-and with CORDA_TPU_PROFILE_DIR set, each device dispatch is a
-``torch.profiler.record_function`` range of a profile exported as a Chrome
-trace into that directory on ``close()``.
+CUDA stream the batcher owns, and the three kernels are built when a CUDA
+batcher is made; a kernel that does not build or launch (``KernelError``)
+fails the batch's futures instead of falling back to the host, while the
+host fallback and breakers still answer every other dispatch failure;
+``mesh=`` is not supported yet; and with CORDA_TPU_PROFILE_DIR set, each
+device dispatch is a ``torch.profiler.record_function`` range of a profile
+exported as a Chrome trace into that directory on ``close()``.
 """
 from __future__ import annotations
 
+import hashlib
 import logging
 import os
 import threading
@@ -44,25 +43,31 @@ import numpy as np
 
 import torch
 
-from ..core.crypto.keys import PublicKey
-from ..core.crypto.schemes import EDDSA_ED25519_SHA512
+from ..core.crypto import ecmath
+from ..core.crypto.keys import (
+    PublicKey, sec1_decompress_cached, sec1_pub_row_cached)
+from ..core.crypto.schemes import (
+    ECDSA_SECP256K1_SHA256, ECDSA_SECP256R1_SHA256, EDDSA_ED25519_SHA512)
 from ..core.crypto.signatures import Crypto
 from ..device import DEFAULT_DEVICE, resolve_device
 from ..observability import get_profiler, get_tracer, jlog
 from .._build import KernelError
 from ..ops import ed25519 as ed_ops
+from ..ops import scalarprep as sp
+from ..ops import weierstrass as wc_ops
 from ..utils.faults import fault_point
 from ..utils.metrics import MetricRegistry
 
 _log = logging.getLogger(__name__)
 
 _ED = EDDSA_ED25519_SHA512.scheme_number_id
+_K1 = ECDSA_SECP256K1_SHA256.scheme_number_id
+_R1 = ECDSA_SECP256R1_SHA256.scheme_number_id
 
-#: Schemes with a device kernel in this package, by scheme number. Only
-#: Ed25519 so far: secp256k1 and secp256r1 (kernels B3/B4) are not ported
-#: yet, so their checks — like every other scheme's — go to the "host"
-#: queue at enqueue time and never reach a device bucket or its breaker.
-_BUCKETS = {_ED: "ed25519"}
+#: Schemes with a device kernel, by scheme number (the reference's three
+#: buckets: kernels B2, B3 and B4); every other scheme's checks go to the
+#: "host" queue at enqueue time.
+_BUCKETS = {_ED: "ed25519", _K1: "secp256k1", _R1: "secp256r1"}
 _DEVICE_SCHEMES = tuple(_BUCKETS.values())
 
 #: Admission-control latency classes: ``interactive`` submissions flush on
@@ -250,9 +255,8 @@ class SignatureBatcher:
     crossover the dispatcher also skips the linger wait, so a lone submit
     is not taxed ``max_latency_s`` for a batch that was never coming."""
 
-    #: Prep-pool width (the JAX package's: one worker per scheme it had on
-    #: device); with one device scheme the workers prep successive Ed25519
-    #: batches concurrently. The heavy prep (sm_*_prep, hashing,
+    #: Prep-pool width: one worker per device scheme, so a mixed drain preps
+    #: ed25519 + k1 + r1 concurrently. The heavy prep (sm_*_prep, hashing,
     #: numpy packing) releases the GIL in C, so the workers genuinely
     #: overlap; same width for the finish pool (device waits are
     #: GIL-releasing too).
@@ -309,9 +313,10 @@ class SignatureBatcher:
         self._stream = (torch.cuda.Stream(self.device)
                         if self.device.type == "cuda" else None)
         if self.use_device and self.device.type == "cuda":
-            # build (or load) the kernel now: a missing compiler or a
-            # refused source raises BuildError here, not at the first batch
+            # build (or load) the three kernels now: a missing compiler or
+            # a refused source raises BuildError here, not at the first batch
             ed_ops.load_kernel()
+            wc_ops.load_kernels()
         self._lock = threading.Condition()
         self._queues: dict[str, _SchemeQueue] = {
             name: _SchemeQueue() for name in (*_DEVICE_SCHEMES, "host")}
@@ -840,9 +845,12 @@ class SignatureBatcher:
                 # chaos seam: a "raise" rule here exercises exactly the
                 # fallback + breaker path a real kernel failure would
                 fault_point("batcher.device_dispatch", detail=bucket)
-                # host prep HERE — overlaps other batches' preps and the
+                # host prep HERE — overlaps other schemes' preps and the
                 # finish pool's device waits
-                pending, finish = self._start_ed25519(items)
+                if bucket == "ed25519":
+                    pending, finish = self._start_ed25519(items)
+                else:
+                    pending, finish = self._start_ecdsa(bucket, items)
         except KernelError:
             dspan.finish()
             raise
@@ -976,3 +984,50 @@ class SignatureBatcher:
             [(p.key.encoded, p.signature, p.content) for p in items],
             device=self.device)
         return pending, ed_ops.finish_batch
+
+    @staticmethod
+    def _ecdsa_kernel_items(curve, items: list[_Pending]):
+        kitems = []
+        for p in items:
+            # per-item isolation: ANY malformed member becomes a False
+            # verdict for that member alone, never a batch failure
+            try:
+                point = sec1_decompress_cached(curve, p.key.encoded)
+                r, s = ecmath.ecdsa_sig_from_der(p.signature)
+            except Exception:
+                point, r, s = None, 0, 0  # fails the range precheck → False
+            kitems.append((point, p.content, r, s))
+        return kitems
+
+    @staticmethod
+    def _ecdsa_words(curve, items: list[_Pending]):
+        """Cached + vectorized ECDSA kernel prep: per-signer pub rows from
+        keys.sec1_pub_row_cached, ONE batched DER parse
+        (scalarprep.ecdsa_sigs_to_words), digests packed straight into the
+        native preps' LE u64 word rows. Per-item isolation is preserved:
+        any malformed member gets r := 0, which the native range precheck
+        rejects into a False verdict for that member alone."""
+        r_words, s_words, ok = sp.ecdsa_sigs_to_words(
+            [p.signature for p in items])
+        pub_words = np.zeros((len(items), 8), dtype=np.uint64)
+        for i, p in enumerate(items):
+            row = sec1_pub_row_cached(curve, p.key.encoded)
+            if row is None:
+                ok[i] = False
+            else:
+                pub_words[i] = row
+        r_words[~ok] = 0     # force the range precheck to reject
+        e_words = sp.digests_to_words(
+            [hashlib.sha256(p.content).digest() for p in items], 4)
+        return e_words, r_words, s_words, pub_words
+
+    def _start_ecdsa(self, bucket: str, items: list[_Pending]):
+        curve = ecmath.SECP256K1 if bucket == "secp256k1" else ecmath.SECP256R1
+        if wc_ops.words_prep_available(curve):
+            pending = wc_ops.verify_batch_async_words(
+                curve, *self._ecdsa_words(curve, items), device=self.device)
+        else:
+            pending = wc_ops.verify_batch_async(
+                curve, self._ecdsa_kernel_items(curve, items),
+                device=self.device)
+        return pending, wc_ops.finish_batch

@@ -6,9 +6,12 @@ torch.cuda.is_available() is False). On a machine with an NVIDIA GPU:
 (``--noconftest``: the suite's conftest imports JAX, which the GPU machine
 lacks.)
 
-The CUDA kernel must give the same verdicts as its plain PyTorch version,
-bit for bit, and the batcher's device route must run on it.
+Each CUDA kernel (B2 Ed25519, B3 secp256k1, B4 secp256r1) must give the
+same verdicts as its plain PyTorch version, bit for bit, and the batcher's
+device routes must run on them.
 """
+import hashlib
+
 import numpy as np
 import pytest
 import torch
@@ -115,3 +118,110 @@ def test_batcher_on_the_card_raises_when_the_kernel_cannot_build(
             SignatureBatcher(device=cuda)
     finally:
         ed.load_kernel.cache_clear()
+
+
+def _ecdsa_items(curve, n, seed):
+    """Signed (pub, msg, r, s) items, every third one tampered, plus a
+    crafted valid signature with x(R) = r + n < p (the r + n candidate of
+    B3, a host fallback of B4)."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(n - 1):
+        priv = int.from_bytes(rng.bytes(32), "little") % (curve.n - 1) + 1
+        msg = rng.bytes(24)
+        r, s = ecmath.ecdsa_sign(curve, priv, msg)
+        if i % 3 == 1:
+            msg += b"!"
+        out.append((curve.mul(priv, curve.g), msg, r, s))
+    p, order = curve.p, curve.n
+    x = order + 1
+    while pow((x ** 3 + curve.a * x + curve.b) % p, (p - 1) // 2, p) != 1:
+        x += 1
+    y = pow((x ** 3 + curve.a * x + curve.b) % p, (p + 1) // 4, p)
+    msg, r, s = b"crafted", x - order, (1 << 200) + 99
+    e = ecmath._bits2int(hashlib.sha256(msg).digest(), order) % order
+    Q = curve.mul(pow(r, order - 2, order),
+                  curve.add(curve.mul(s, (x, y)), curve.mul(order - e,
+                                                            curve.g)))
+    out.append((Q, msg, r, s))
+    return out
+
+
+@pytest.mark.parametrize("name", ["secp256k1", "secp256r1"])
+def test_ecdsa_kernels_match_plain_versions_on_the_card(cuda, name):
+    from corda_tpu_torch.ops import weierstrass as wc
+    curve = ecmath.SECP256K1 if name == "secp256k1" else ecmath.SECP256R1
+    items = _ecdsa_items(curve, 40, 4)
+    if name == "secp256k1":
+        *wire, precheck = wc.prepare_batch_hybrid_wide(items)
+        forced = np.zeros(len(items), dtype=bool)
+        tabs, fn = wc.hybrid_tables(cuda), wc.verify_core_hybrid_wide
+        plain = wc.verify_core_hybrid_wide_plain
+    else:
+        *wire, precheck, forced = wc.prepare_batch_r1_split(curve, items)
+        tabs, fn = wc.r1_split_tables(cuda), wc.verify_core_r1_split
+        plain = wc.verify_core_r1_split_plain
+    args = [torch.from_numpy(np.array(a)).to(cuda) for a in wire]
+    before = fn.launches
+    ok = fn(*args, *tabs)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    assert torch.equal(ok.cpu(), plain(*args, *tabs).cpu())
+    want = [ecmath.ecdsa_verify(curve, *it) for it in items]
+    assert want[-1]
+    assert list((ok.cpu().numpy() & precheck) | forced) == want
+
+
+def test_batcher_ecdsa_device_routes_run_the_kernels(cuda):
+    from corda_tpu_torch.core.crypto import Crypto, generate_keypair
+    from corda_tpu_torch.core.crypto.schemes import (ECDSA_SECP256K1_SHA256,
+                                                     ECDSA_SECP256R1_SHA256)
+    from corda_tpu_torch.ops import weierstrass as wc
+    from corda_tpu_torch.verifier import SignatureBatcher
+    checks, want = [], []
+    for i in range(24):
+        scheme = (ECDSA_SECP256K1_SHA256, ECDSA_SECP256R1_SHA256)[i % 2]
+        kp = generate_keypair(scheme, entropy=bytes([i + 1]) * 32)
+        msg = bytes([i]) * 9
+        sig = Crypto.sign_with_key(kp, msg).bytes
+        if i % 4 < 2:
+            msg += b"?"
+        checks.append((kp.public, sig, msg))
+        want.append(i % 4 >= 2)
+    b = SignatureBatcher(device=cuda, host_crossover=0, max_latency_s=0.01)
+    before = (wc.verify_core_hybrid_wide.launches,
+              wc.verify_core_r1_split.launches)
+    try:
+        got = b.submit_group(checks).result(timeout=120)
+    finally:
+        b.close()
+    assert got == want
+    assert wc.verify_core_hybrid_wide.launches > before[0]
+    assert wc.verify_core_r1_split.launches > before[1]
+    snap = b.metrics.snapshot()
+    assert snap["SigBatcher.DeviceChecked"]["count"] == 24
+    assert "SigBatcher.BatchFailure" not in snap
+
+
+def test_batcher_on_the_card_raises_when_an_ecdsa_kernel_cannot_build(
+        cuda, tmp_path, monkeypatch):
+    """The CUDA batcher builds all three kernels at construction: a
+    secp256r1 kernel that cannot build raises BuildError there."""
+    from corda_tpu_torch import _build
+    from corda_tpu_torch.ops import ed25519 as ed
+    from corda_tpu_torch.ops import weierstrass as wc
+    from corda_tpu_torch.verifier import SignatureBatcher
+    monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path))
+    monkeypatch.setattr(_build, "_LIBS", {})
+    monkeypatch.setitem(_build._TARGETS["secp256r1_split"], "compiler",
+                        lambda: None)
+    for load in (ed.load_kernel, wc.load_hybrid_kernel,
+                 wc.load_r1_split_kernel):
+        load.cache_clear()
+    try:
+        with pytest.raises(_build.BuildError, match="secp256r1_split"):
+            SignatureBatcher(device=cuda)
+    finally:
+        for load in (ed.load_kernel, wc.load_hybrid_kernel,
+                     wc.load_r1_split_kernel):
+            load.cache_clear()

@@ -17,6 +17,16 @@ from corda_tpu_torch.ops import ed25519 as ted
 from corda_tpu_torch.ops import field as TF
 
 RNG = np.random.default_rng(25519)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _torch_threads():
+    """Two intra-op threads, so the port's CPU work leaves the cores to the
+    JAX tests running beside it in the other workers."""
+    prev = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(prev)
 P = ecmath.ED_P
 
 

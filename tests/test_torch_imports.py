@@ -71,3 +71,8 @@ def test_default_device_raises_without_cuda():
         ed25519.verify_batch([(b"\x00" * 32, b"\x00" * 64, b"m")])
     with pytest.raises(RuntimeError, match="cuda"):
         make_verifier_service("Tpu")
+    from corda_tpu_torch.core.crypto import ecmath
+    from corda_tpu_torch.ops import weierstrass
+    for curve in (ecmath.SECP256K1, ecmath.SECP256R1):
+        with pytest.raises(RuntimeError, match="cuda"):
+            weierstrass.verify_batch(curve, [(curve.g, b"m", 1, 1)])

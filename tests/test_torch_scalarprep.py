@@ -1,6 +1,7 @@
 """Differential tests: the port's scalar prep (native library built from
 native/scalarmath.cpp by corda_tpu_torch._build, and its pure-Python
-fallback) against corda_tpu.ops.scalarprep.ed_prep, bit for bit."""
+fallback) against corda_tpu.ops.scalarprep's ed_prep, k1_prep and
+r1_prep_hg, bit for bit."""
 import hashlib
 
 import numpy as np
@@ -54,3 +55,34 @@ def test_ed_prep_matches_jax(route):
         assert g.dtype == w.dtype and g.shape == w.shape
         assert np.array_equal(g, w)
     assert not got[3][1] and not got[3][2] and got[3][0]
+
+
+@pytest.mark.parametrize("prep", ["k1_prep", "r1_prep_hg"])
+def test_ecdsa_preps_match_jax(prep):
+    """sm_k1_prep and sm_r1_prep_hg through the port's binding give the JAX
+    binding's arrays on signed items plus range and key edges (r = 0,
+    s = 0, s > n/2, r = n, an all-zero key)."""
+    if not jsp.available():
+        pytest.skip("the JAX package's libscalarmath is not built here")
+    curve = ecmath.SECP256K1 if prep == "k1_prep" else ecmath.SECP256R1
+    es, rs, ss, pubs = [], [], [], []
+    for i in range(12):
+        priv = int.from_bytes(RNG.bytes(32), "little") % (curve.n - 1) + 1
+        msg = RNG.bytes(16)
+        r, s = ecmath.ecdsa_sign(curve, priv, msg)
+        es.append(int.from_bytes(hashlib.sha256(msg).digest(), "big"))
+        rs.append(r)
+        ss.append(s)
+        pubs.append(curve.mul(priv, curve.g))
+    rs[1], ss[2], ss[3], rs[4] = 0, 0, curve.n - 1, curve.n
+    words = (tsp.ints_to_words(es), tsp.ints_to_words(rs),
+             tsp.ints_to_words(ss),
+             tsp.ints_to_words([x + (y << 256) for x, y in pubs], 8))
+    words[3][5] = 0
+    got = getattr(tsp, prep)(*words)
+    want = getattr(jsp, prep)(*words)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert np.array_equal(g, w)
+    assert list(got[-1][:6]) == [True, False, False, False, False, False]

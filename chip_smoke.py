@@ -1,15 +1,16 @@
 #!/usr/bin/env python3
 """Smoke run of corda_tpu_torch on one NVIDIA GPU: builds every kernel of the
 port from the sources in this checkout, holds each against its plain PyTorch
-version, and drives the signature-verification service paths end to end:
-Ed25519 and ECDSA (secp256k1, secp256r1).
+version, and drives the signature-verification service paths end to end —
+Ed25519 and ECDSA (secp256k1, secp256r1) — and the Merkle hashing path
+(bulk tear-off proof checks and bulk transaction ids).
 
     python3 chip_smoke.py [--seed N]
 
 Phases (any failure exits non-zero; nothing is caught):
 
 1. probe   — card name and power limit (nvidia-smi), torch/CUDA versions,
-             parallel build of the three CUDA kernel libraries and
+             parallel build of the four CUDA kernel libraries and
              libscalarmath (seconds, and nvcc's register/spill report); the
              native scalar prep must be in use.
 2. kernels — each kernel against its plain PyTorch version on the card at
@@ -19,17 +20,36 @@ Phases (any failure exits non-zero; nothing is caught):
              signing (B3's with crafted r + n < p signatures, B4's with
              half-gcd fallbacks). Verdicts bit-identical and equal to the
              construction; CUDA-event medians of both versions, and the
-             card's least time for the same work.
-3. service — SignatureBatcher(device="cuda") driven through submit_group:
+             card's least time for the same work. Then B6 (SHA-256/Merkle):
+             hash_pairs at 2^10, 2^14, 2^17 and 2^20 pairs, merkle_root on
+             65,536 trees of 8 and of 16 leaves and one tree of 2^20
+             leaves, sha256_blocks on 65,536 messages of 1 and of 4 blocks:
+             bit-identical to the plain versions, a random 256 lanes equal
+             to hashlib.
+3. merkle  — the Merkle path at the default DEVICE_CROSSOVER (2^17):
+             verify_filtered_batch over 131,072 oracle-shaped tear-offs
+             (4,096 distinct seeded transactions tiled x32, 1/16 tampered)
+             and batch_roots over 131,072 component-hash lists (oracle- and
+             cash-shaped), each once on the host route and once on the
+             card in turns (host, card, card, host); verdicts and roots
+             must equal each other, the construction and
+             WireTransaction.id, and B6 must have launched (hash_pairs /
+             merkle_root counts set to 0 just before the first card call
+             and read just after). Each device window is repeated under
+             torch.profiler for the card's idle share; one round is timed
+             on both routes at 2^8..2^17 pairs for the H100's own
+             host/device crossover.
+4. service — SignatureBatcher(device="cuda") driven through submit_group:
              Ed25519 (bulk groups of 32768, 1024-item interactive groups,
              single submits), then secp256k1 and secp256r1 (bulk groups of
              32768 and interactive 1024 groups each), then a mixed
              Ed25519/secp256k1/secp256r1 verify_signed run through the
-             verifier service. Verdicts must match the construction and a
-             random 256 per scheme the host oracle; no batch may fail over to
-             the host, every breaker stays closed, and each path's kernels
-             must have launched (counts set to 0 just before each path and
-             read just after; the kernels line gives each kernel's count on
+             verifier service on real SignedTransactions (DummyContract
+             states, a dict-backed services). Verdicts must match the
+             construction and a random 256 per scheme the host oracle; no
+             batch may fail over to the host, every breaker stays closed,
+             and each path's kernels must have launched (counts set to 0
+             just before each path and read just after; the kernels line gives each kernel's count on
              its own scheme's path, the mixed run's are printed with the
              ECDSA results). Each path's bulk groups then run once more
              under torch.profiler (CORDA_TPU_PROFILE_DIR), whose trace gives
@@ -116,9 +136,41 @@ EC_SIGNERS, EC_MESSAGES = 64, 256
 EC_BULK_GROUPS, EC_INTERACTIVE_RUNS, MIXED_TXS = 4, 10, 512
 ORACLE_SAMPLE = 256
 
+#: B6 (csrc/sha256.cu): 32-bit integer instructions (LOP3, SHF, IADD3) of a
+#: Merkle pair — a compression and the pad block's — and of one block of
+#: sha256_blocks, counted in the kernel's source note. They issue at the
+#: same 64 lanes a clock per SM as IMAD (CUDA C++ Programming Guide,
+#: arithmetic instruction throughput for compute capability 9.0).
+SHA_PAIR_OPS, SHA_BLOCK_OPS = 2288, 1384
+INT32_OPS_PER_S = IMAD_PER_S
+PAIR_SIZES = (1 << 10, 1 << 14, 1 << 17, 1 << 20)
+ROOT_SHAPES = ((65536, 8), (65536, 16), (1, 1 << 20))    # (trees, leaves)
+BLOCK_SHAPES = ((65536, 1), (65536, 4))                  # (messages, blocks)
+#: Merkle path: 4,096 distinct seeded transactions per shape; the oracle
+#: tear-offs tiled x32 (131,072 proofs), the id lists tiled x16 per shape
+#: (131,072 lists); one round timed on both routes at 2^8..2^17 pairs.
+MERKLE_DISTINCT, PROOF_TILE, ROOT_TILE = 4096, 32, 16
+CROSSOVER_SIZES = tuple(1 << k for k in range(8, 18))
+B6_TIMED_CALLS = 20
+B6_KERNELS = {
+    "sha256_hash_pairs": {"replaces": "corda_tpu/ops/sha256.py:111",
+                          "row": ("hash_pairs", 1 << 17)},
+    "sha256_merkle_root": {"replaces": "corda_tpu/ops/sha256.py:122",
+                           "row": ("merkle_root", (65536, 16))},
+}
+NOTARY_NAME = "O=Notary Service, L=Zurich, C=CH"
+
 
 def log(*a):
     print(*a, flush=True)
+
+
+def log_phase(name: str, t0: float) -> float:
+    """Print the seconds of phase ``name`` (started at ``t0``) and return
+    the start of the next."""
+    now = time.perf_counter()
+    log(f"phase {name}: {now - t0:.1f} s")
+    return now
 
 
 def bound_ms(kernel: str, n: int, table_bytes: int) -> tuple[float, str]:
@@ -127,6 +179,15 @@ def bound_ms(kernel: str, n: int, table_bytes: int) -> tuple[float, str]:
     k = KERNELS[kernel]
     ops_s = n * k["imad"] / IMAD_PER_S
     bytes_s = (n * k["wire"] + table_bytes) / HBM_BYTES_PER_S
+    return (1e3 * max(ops_s, bytes_s),
+            "operations" if ops_s >= bytes_s else "bytes")
+
+
+def sha_bound_ms(ops: int, nbytes: int) -> tuple[float, str]:
+    """The card's least time for B6 work of ``ops`` 32-bit integer
+    instructions that reads and writes ``nbytes``."""
+    ops_s = ops / INT32_OPS_PER_S
+    bytes_s = nbytes / HBM_BYTES_PER_S
     return (1e3 * max(ops_s, bytes_s),
             "operations" if ops_s >= bytes_s else "bytes")
 
@@ -398,25 +459,401 @@ def traced_window(batcher_factory, groups, want):
     return wall, busy_s, kernel_s
 
 
-class SmokeTransaction:
-    """A transaction as the verifier service sees it (``id``, ``sigs``,
-    coverage and ledger resolution), standing in for a SignedTransaction,
-    which the port does not have yet: every key signs the id, and the
-    ledger transaction's contract check passes."""
+def mixed_transactions(seed: int, ec_data: dict, pool) -> list:
+    """The mixed verify_signed run's SignedTransactions: each a
+    DummyContract issuance whose id is signed by one Ed25519, one
+    secp256k1 and one secp256r1 signer (``ec_data``'s keys; the ECDSA
+    signatures on ``pool``), every eighth transaction's secp256r1
+    signature tampered."""
+    from corda_tpu_torch.core.contracts import Command, TransactionState
+    from corda_tpu_torch.core.crypto import PublicKey, ecmath
+    from corda_tpu_torch.core.crypto.keys import sec1_compress
+    from corda_tpu_torch.core.crypto.schemes import (ECDSA_SECP256K1_SHA256,
+                                                     ECDSA_SECP256R1_SHA256,
+                                                     EDDSA_ED25519_SHA512)
+    from corda_tpu_torch.core.crypto.signatures import DigitalSignatureWithKey
+    from corda_tpu_torch.core.identity import Party
+    from corda_tpu_torch.core.transactions import (SignedTransaction,
+                                                   WireTransaction)
+    from corda_tpu_torch.testing.dummy import DummyContract, DummyState
+    schemes = {"secp256k1": ECDSA_SECP256K1_SHA256,
+               "secp256r1": ECDSA_SECP256R1_SHA256}
+    rng = random.Random(seed)
+    ed_seeds = [rng.randbytes(32) for _ in range(16)]
+    ed_keys = [PublicKey(EDDSA_ED25519_SHA512, ecmath.ed25519_public_key(sd))
+               for sd in ed_seeds]
+    notary = Party(NOTARY_NAME, PublicKey(
+        EDDSA_ED25519_SHA512, ecmath.ed25519_public_key(rng.randbytes(32))))
+    ec_keys = {name: [PublicKey(scheme, sec1_compress(_curve(name), pt))
+                      for pt in ec_data[name][2]]
+               for name, scheme in schemes.items()}
+    wtxs = []
+    for t in range(MIXED_TXS):
+        signers = (ed_keys[t % 16], ec_keys["secp256k1"][t % EC_SIGNERS],
+                   ec_keys["secp256r1"][t % EC_SIGNERS])
+        wtxs.append(WireTransaction(
+            outputs=(TransactionState(DummyState(t, signers), notary),),
+            commands=(Command(DummyContract.Create(), signers),),
+            notary=notary, must_sign=signers))
+    tx_sigs = [[DigitalSignatureWithKey(
+        ecmath.ed25519_sign(ed_seeds[t % 16], w.id.bytes,
+                            public=ed_keys[t % 16].encoded), ed_keys[t % 16])]
+        for t, w in enumerate(wtxs)]
+    for name in schemes:
+        curve = _curve(name)
+        privs = ec_data[name][1]
+        jobs = [(name, privs[t % EC_SIGNERS], wtxs[t].id.bytes)
+                for t in range(MIXED_TXS)]
+        for t, (r, s) in enumerate(pool.map(_ecdsa_sign_job, jobs,
+                                            chunksize=16)):
+            if name == "secp256r1" and t % 8 == 3:
+                s = s + 1 if s + 1 <= curve.n // 2 else s - 1
+            tx_sigs[t].append(DigitalSignatureWithKey(
+                ecmath.ecdsa_sig_to_der(r, s), ec_keys[name][t % EC_SIGNERS]))
+    return [SignedTransaction.of(w, sg) for w, sg in zip(wtxs, tx_sigs)]
 
-    class _Ledger:
-        def verify(self):
-            return None
 
-    def __init__(self, tx_id, sigs):
-        self.id = tx_id
-        self.sigs = sigs
+class SmokeServices:
+    """The services a SignedTransaction resolves against: states and
+    attachments in dicts."""
 
-    def get_missing_signatures(self):
-        return set()
+    def __init__(self, states=None, attachments=None):
+        self.states = dict(states or {})
+        self.blobs = dict(attachments or {})
+        self.attachments = self
 
-    def to_ledger_transaction(self, services):
-        return self._Ledger()
+    def load_state(self, ref):
+        return self.states.get(ref)
+
+    def open_attachment(self, att_id):
+        return self.blobs.get(att_id)
+
+
+# ---------------------------------------------------------------------------
+# B6: SHA-256 / Merkle
+# ---------------------------------------------------------------------------
+
+def _host_root(leaves: bytes) -> bytes:
+    """hashlib Merkle root of concatenated 32-byte leaves (a power of two
+    of them)."""
+    import hashlib
+    level = [leaves[i:i + 32] for i in range(0, len(leaves), 32)]
+    while len(level) > 1:
+        level = [hashlib.sha256(level[i] + level[i + 1]).digest()
+                 for i in range(0, len(level), 2)]
+    return level[0]
+
+
+def compare_b6(label, shape, kernel, plain, arg, host_check, ops, nbytes,
+               card, plain_runs):
+    """One B6 shape: the kernel against its plain version on the same
+    tensor (bit-identical words), ``host_check`` on the kernel's words
+    (hashlib on a random 256 lanes), and both versions' times. A B6 call
+    is tens of microseconds on the card, about what the Python wrapper
+    takes to issue it, so its time is taken over B6_TIMED_CALLS calls
+    issued back to back between the two events."""
+    import numpy as np
+    import torch
+    from corda_tpu_torch.ops import sha256 as sha
+    k = sha.words_to_numpy(kernel(arg))
+    p = sha.words_to_numpy(plain(arg))
+    torch.cuda.synchronize()
+    if not np.array_equal(k, p):
+        raise SystemExit(f"{label} disagrees with its plain version at "
+                         f"{shape}: {(k != p).any(axis=-1).sum()} digests")
+    host_check(k)
+
+    def launches():
+        for _ in range(B6_TIMED_CALLS):
+            kernel(arg)
+    ms = time_cuda(launches, RUNS) / B6_TIMED_CALLS
+    plain_ms = time_cuda(lambda: plain(arg), plain_runs)
+    bms, by = sha_bound_ms(ops, nbytes)
+    err = int(np.abs(k.astype(np.int64) - p.astype(np.int64)).max())
+    row = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+           "max_abs_err": err}
+    log(json.dumps({"kernel": label, "shape": shape, "identical": True,
+                    "hashlib_sample_agrees": True, **row, "card": card}))
+    return row
+
+
+def b6_kernel_phase(dev, card, seed: int) -> dict:
+    """Phase 2, B6: hash_pairs, merkle_root and sha256_blocks at the
+    smoke's shapes. Returns {(function, shape): row}."""
+    import hashlib
+    import numpy as np
+    from corda_tpu_torch.ops import sha256 as sha
+    rng = np.random.default_rng(seed)
+    pick = random.Random(seed)
+    rows = {}
+
+    def words(*shape):
+        return sha.as_words(rng.integers(0, 1 << 32, shape, dtype=np.uint64)
+                            .astype(np.uint32)).to(dev)
+
+    for n in PAIR_SIZES:
+        arg = words(n, 16)
+        raw = sha.words_to_numpy(arg).astype(">u4").tobytes()
+
+        def check(k, n=n, raw=raw):
+            got = k.astype(">u4").tobytes()
+            for i in pick.sample(range(n), min(n, ORACLE_SAMPLE)):
+                if got[32 * i:32 * i + 32] != hashlib.sha256(
+                        raw[64 * i:64 * i + 64]).digest():
+                    raise SystemExit(f"hash_pairs lane {i} of {n} differs "
+                                     "from hashlib")
+        rows[("hash_pairs", n)] = compare_b6(
+            "sha256_hash_pairs", n, sha.hash_pairs, sha.hash_pairs_plain, arg,
+            check, n * SHA_PAIR_OPS, n * 96, card, 3)
+    for trees, leaves in ROOT_SHAPES:
+        arg = words(trees, leaves, 8) if trees > 1 else words(leaves, 8)
+        raw = sha.words_to_numpy(arg).astype(">u4").tobytes()
+
+        def check(k, trees=trees, leaves=leaves, raw=raw):
+            got = k.reshape(-1, 8).astype(">u4").tobytes()
+            size = 32 * leaves
+            for i in pick.sample(range(trees), min(trees, ORACLE_SAMPLE)):
+                if got[32 * i:32 * i + 32] != _host_root(
+                        raw[size * i:size * (i + 1)]):
+                    raise SystemExit(f"merkle_root tree {i} of {trees}x"
+                                     f"{leaves} differs from hashlib")
+        rows[("merkle_root", (trees, leaves))] = compare_b6(
+            "sha256_merkle_root", [trees, leaves], sha.merkle_root,
+            sha.merkle_root_plain, arg, check,
+            trees * (leaves - 1) * SHA_PAIR_OPS, trees * (leaves + 1) * 32,
+            card, 2 if leaves > 16 else 3)
+    for n, n_blocks in BLOCK_SHAPES:
+        lo, hi = 64 * (n_blocks - 1), 64 * n_blocks - 9
+        msgs = [rng.bytes(int(rng.integers(lo, hi + 1))) for _ in range(n)]
+        arg = sha.as_words(sha.pack_batch(msgs)).to(dev)
+
+        def check(k, msgs=msgs):
+            got = k.astype(">u4").tobytes()
+            for i in pick.sample(range(len(msgs)), ORACLE_SAMPLE):
+                if got[32 * i:32 * i + 32] != hashlib.sha256(
+                        msgs[i]).digest():
+                    raise SystemExit(f"sha256_blocks message {i} differs "
+                                     "from hashlib")
+        rows[("sha256_blocks", (n, n_blocks))] = compare_b6(
+            "sha256_blocks", [n, n_blocks], sha.sha256_blocks,
+            sha.sha256_blocks_plain, arg, check, n * n_blocks * SHA_BLOCK_OPS,
+            n * (64 * n_blocks + 32), card, 3)
+    return rows
+
+
+def _oracle_wtx(env, i: int):
+    """Oracle-shaped: one DummyState output, a Create and a Fix command,
+    notary, two must_sign keys and the type (7 components)."""
+    C, O = env["contracts"], env["oracle"]
+    return env["WireTransaction"](
+        outputs=(C.TransactionState(env["DummyState"](i + 1, (env["alice"],)),
+                                    env["notary"]),),
+        commands=(C.Command(env["DummyContract"].Create(), (env["alice"],)),
+                  C.Command(O.Fix(O.FixOf("ICE LIBOR", "2016-03-16", "3M"),
+                                  400 + i), (env["rates"],))),
+        notary=env["notary"], must_sign=(env["alice"], env["rates"]))
+
+
+def _cash_wtx(env, i: int):
+    """Cash-shaped: three inputs, two outputs, a Move command, notary and
+    three must_sign keys (the two owners and the notary) and the type (11
+    components)."""
+    C = env["contracts"]
+    owners = (env["alice"], env["bob"])
+    return env["WireTransaction"](
+        inputs=tuple(C.StateRef(env["SecureHash"].sha256(
+            f"prev {i} {k}".encode()), k) for k in range(3)),
+        outputs=tuple(C.TransactionState(
+            env["DummyState"](100 * i + k, (owners[k],)), env["notary"])
+            for k in range(2)),
+        commands=(C.Command(env["DummyContract"].Move(), owners),),
+        notary=env["notary"], must_sign=owners + (env["notary_key"],))
+
+
+def traced_device_window(fn):
+    """Run ``fn`` once more under torch.profiler (one session over every
+    thread, as the batcher's CORDA_TPU_PROFILE_DIR session); returns (its
+    result, wall s, busy s, kernel s) of the window from the exported
+    trace."""
+    import collections
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                   experimental_config=torch.profiler._ExperimentalConfig(
+                       profile_all_threads=True))
+    with tempfile.TemporaryDirectory() as prof_dir:
+        prof.start()
+        try:
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            prof.stop()
+        trace = os.path.join(prof_dir, "merkle.json")
+        prof.export_chrome_trace(trace)
+        busy_s, kernel_s = device_busy_s(trace)
+        if kernel_s == 0.0:
+            cats = collections.Counter(e.get("cat", "") for e in json.load(
+                open(trace))["traceEvents"])
+            raise SystemExit("the profiler trace holds no kernel on the "
+                             f"card; its events by category: {dict(cats)}")
+    return out, wall, busy_s, kernel_s
+
+
+def merkle_phase(dev, card, seed: int) -> tuple[dict, dict]:
+    """Phase 4: the Merkle path through verify_filtered_batch and
+    batch_roots at the default crossover (their default device, the
+    card), and one round timed on both routes on ``dev``. Returns
+    (results, launches)."""
+    import hashlib
+    import statistics as stats
+    import torch
+    from corda_tpu_torch.core import contracts
+    from corda_tpu_torch.core.crypto import PublicKey, SecureHash, ecmath
+    from corda_tpu_torch.core.crypto.schemes import EDDSA_ED25519_SHA512
+    from corda_tpu_torch.core.identity import Party
+    from corda_tpu_torch.core.transactions import (FilteredTransaction,
+                                                   WireTransaction)
+    from corda_tpu_torch.core.transactions import batch_merkle as bm
+    from corda_tpu_torch.ops import sha256 as sha
+    from corda_tpu_torch.samples import rates_oracle
+    from corda_tpu_torch.testing.dummy import DummyContract, DummyState
+
+    rng = random.Random(seed)
+    keys = [PublicKey(EDDSA_ED25519_SHA512,
+                      ecmath.ed25519_public_key(rng.randbytes(32)))
+            for _ in range(4)]
+    env = {"contracts": contracts, "oracle": rates_oracle,
+           "WireTransaction": WireTransaction, "DummyState": DummyState,
+           "DummyContract": DummyContract, "SecureHash": SecureHash,
+           "alice": keys[0], "rates": keys[1], "bob": keys[2],
+           "notary_key": keys[3], "notary": Party(NOTARY_NAME, keys[3])}
+    out = {"card": card, "device_crossover": bm.DEVICE_CROSSOVER}
+
+    t0 = time.perf_counter()
+    owtx = [_oracle_wtx(env, i) for i in range(MERKLE_DISTINCT)]
+    cwtx = [_cash_wtx(env, i) for i in range(MERKLE_DISTINCT)]
+    olists = [w.available_component_hashes for w in owtx]
+    clists = [w.available_component_hashes for w in cwtx]
+
+    def reveals_fix(c):
+        return (isinstance(c, contracts.Command)
+                and isinstance(c.value, rates_oracle.Fix))
+    base = [w.build_filtered_transaction(reveals_fix) for w in owtx]
+    ftxs, want = [], []
+    for i in range(MERKLE_DISTINCT * PROOF_TILE):
+        ftx = base[i % MERKLE_DISTINCT]
+        if i % 16 == 5:          # 1/16 tampered: wrong root or swapped leaf
+            other = base[(i + 1) % MERKLE_DISTINCT]
+            ftx = (FilteredTransaction(SecureHash.sha256(b"wrong %d" % i),
+                                       ftx.filtered_leaves,
+                                       ftx.partial_merkle_tree)
+                   if (i // 16) % 2 == 0 else
+                   FilteredTransaction(ftx.root_hash, other.filtered_leaves,
+                                       ftx.partial_merkle_tree))
+        ftxs.append(ftx)
+        want.append(i % 16 != 5)
+    lists = [olists[i % MERKLE_DISTINCT]
+             for i in range(MERKLE_DISTINCT * ROOT_TILE)] + [
+        clists[i % MERKLE_DISTINCT]
+        for i in range(MERKLE_DISTINCT * ROOT_TILE)]
+    ids = [owtx[i % MERKLE_DISTINCT].id.bytes
+           for i in range(MERKLE_DISTINCT * ROOT_TILE)] + [
+        cwtx[i % MERKLE_DISTINCT].id.bytes
+        for i in range(MERKLE_DISTINCT * ROOT_TILE)]
+    out["dataset_s"] = time.perf_counter() - t0
+    log(f"merkle dataset: {2 * MERKLE_DISTINCT} transactions, "
+        f"{len(ftxs)} tear-offs, {len(lists)} id lists in "
+        f"{out['dataset_s']:.1f} s")
+
+    def both_routes(call, counter):
+        """``call`` on the host route and on the card in turns (host,
+        card, card, host): (results, host s, card s, launches of the
+        first card run, counted from 0 just before it)."""
+        results, host_s, dev_s, launches = [], [], [], None
+        for use_device in (False, True, True, False):
+            if use_device and launches is None:
+                counter.launches = 0
+            t0 = time.perf_counter()
+            results.append(call(use_device))
+            torch.cuda.synchronize()
+            (dev_s if use_device else host_s).append(
+                time.perf_counter() - t0)
+            if use_device and launches is None:
+                launches = counter.launches
+        return results, host_s, dev_s, launches
+
+    # bulk tear-off verification
+    results, host_s, dev_s, pair_launches = both_routes(
+        lambda d: bm.verify_filtered_batch(ftxs, use_device=d),
+        sha.hash_pairs)
+    if any(r != want for r in results):
+        raise SystemExit("verify_filtered_batch verdicts disagree with the "
+                         "construction")
+    if pair_launches == 0:
+        raise SystemExit("verify_filtered_batch launched hash_pairs no time")
+    _, tr_wall, tr_busy, tr_kernel = traced_device_window(
+        lambda: bm.verify_filtered_batch(ftxs))
+    out["proofs"] = {
+        "n": len(ftxs), "tampered": want.count(False),
+        "host_s": host_s, "device_s": dev_s,
+        "host_proofs_per_s": len(ftxs) / stats.median(host_s),
+        "device_proofs_per_s": len(ftxs) / stats.median(dev_s),
+        "hash_pairs_launches": pair_launches,
+        "traced_wall_s": tr_wall, "traced_device_busy_s": tr_busy,
+        "traced_kernel_s": tr_kernel,
+        "traced_device_idle_share": 1.0 - tr_busy / tr_wall}
+
+    # bulk transaction ids
+    results, host_s, dev_s, root_launches = both_routes(
+        lambda d: [h.bytes for h in bm.batch_roots(lists, use_device=d)],
+        sha.merkle_root)
+    if any(r != ids for r in results):
+        raise SystemExit("batch_roots disagrees with WireTransaction.id")
+    if root_launches == 0:
+        raise SystemExit("batch_roots launched merkle_root no time")
+    _, tr_wall, tr_busy, tr_kernel = traced_device_window(
+        lambda: bm.batch_roots(lists))
+    out["roots"] = {
+        "n": len(lists), "leaves": [8, 16],
+        "host_s": host_s, "device_s": dev_s,
+        "host_roots_per_s": len(lists) / stats.median(host_s),
+        "device_roots_per_s": len(lists) / stats.median(dev_s),
+        "merkle_root_launches": root_launches,
+        "traced_wall_s": tr_wall, "traced_device_busy_s": tr_busy,
+        "traced_kernel_s": tr_kernel,
+        "traced_device_idle_share": 1.0 - tr_busy / tr_wall}
+
+    # one round on both routes, as verify_filtered_batch runs it
+    curve = []
+    for n in CROSSOVER_SIZES:
+        pairs = rng.randbytes(64 * n)
+
+        def host_round():
+            return [hashlib.sha256(pairs[i * 64:(i + 1) * 64]).digest()
+                    for i in range(n)]
+
+        def device_round():
+            arr = sha.as_words(bm._words(pairs, n, 16)).to(dev)
+            return sha.digests_to_bytes(sha.hash_pairs(arr))
+        if device_round() != host_round():
+            raise SystemExit(f"round of {n} pairs: routes disagree")
+        t_host, t_dev = [], []
+        for _ in range(5):
+            t1 = time.perf_counter()
+            host_round()
+            t_host.append(time.perf_counter() - t1)
+            t1 = time.perf_counter()
+            device_round()
+            t_dev.append(time.perf_counter() - t1)
+        curve.append({"pairs": n, "host_ms": 1e3 * stats.median(t_host),
+                      "device_ms": 1e3 * stats.median(t_dev)})
+    faster = [c["pairs"] for c in curve if c["device_ms"] < c["host_ms"]]
+    out["round_curve"] = curve
+    out["measured_crossover_pairs"] = min(faster) if faster else None
+    return out, {"sha256_hash_pairs": pair_launches,
+                 "sha256_merkle_root": root_launches}
 
 
 def main() -> int:
@@ -437,6 +874,7 @@ def main() -> int:
         return 2
 
     # -- phase 1: probe and build ------------------------------------------
+    t_phase = time.perf_counter()
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
@@ -448,10 +886,10 @@ def main() -> int:
     _build.build_all()
     log(f"build: {time.perf_counter() - t0:.3f} s wall, per library "
         f"{json.dumps(_build.BUILD_SECONDS)}")
-    for kernel in KERNELS.values():
-        for line in _build.BUILD_LOG.get(kernel["lib"], "").splitlines():
+    for lib in [k["lib"] for k in KERNELS.values()] + ["sha256"]:
+        for line in _build.BUILD_LOG.get(lib, "").splitlines():
             if "registers" in line or "spill" in line or "stack frame" in line:
-                log(f"ptxas {kernel['lib']}: {line.strip()}")
+                log(f"ptxas {lib}: {line.strip()}")
     import numpy as np
     from corda_tpu_torch.core.crypto import ecmath
     from corda_tpu_torch.ops import ed25519 as ed
@@ -479,6 +917,8 @@ def main() -> int:
     tables = ed.split_tables(dev)
     k1_tables = wc.hybrid_tables(dev)
     r1_tables = wc.r1_split_tables(dev)
+
+    t_phase = log_phase("probe, build and datasets", t_phase)
 
     # -- phase 2: each kernel against its plain version ---------------------
     per_kernel = {name: {} for name in KERNELS}
@@ -516,13 +956,23 @@ def main() -> int:
             card)
     log("library_ms: null — no PyTorch call computes Ed25519 or ECDSA "
         "verification")
+    b6_rows = b6_kernel_phase(dev, card, args.seed + 23)
+    log("library_ms: null — no PyTorch call computes SHA-256; "
+        "sha256_blocks is held to its plain version and hashlib here but is "
+        "not on the Merkle path (the JAX package hashes leaves on the host "
+        "too), so it is not in the kernels line")
+    t_phase = log_phase("kernels", t_phase)
 
-    # -- phase 3: the service paths ------------------------------------------
+    # -- phase 3: the Merkle path --------------------------------------------
+    merkle, b6_launches = merkle_phase(dev, card, args.seed + 29)
+    log(json.dumps({"path": "merkle", **merkle}))
+    t_phase = log_phase("merkle", t_phase)
+
+    # -- phase 4: the service paths ------------------------------------------
     from corda_tpu_torch.core.crypto import Crypto, PublicKey
     from corda_tpu_torch.core.crypto.schemes import (ECDSA_SECP256K1_SHA256,
                                                      ECDSA_SECP256R1_SHA256,
                                                      EDDSA_ED25519_SHA512)
-    from corda_tpu_torch.core.crypto.secure_hash import SecureHash
     from corda_tpu_torch.observability import (KernelProfiler, get_profiler,
                                                set_profiler)
     from corda_tpu_torch.ops.staging import get_staging_pool
@@ -716,33 +1166,11 @@ def main() -> int:
         raise SystemExit("the ECDSA path launched a kernel no time: "
                          f"k1 {k1_launches}, r1 {r1_launches}")
 
-    # mixed Ed25519/secp256k1/secp256r1 transactions through verify_signed:
-    # each id signed by one signer of each scheme (the ECDSA signatures on
-    # the process pool), every eighth transaction's secp256r1 signature
-    # tampered
-    from corda_tpu_torch.core.crypto.keys import sec1_compress
-    rng = random.Random(args.seed + 17)
-    ed_seeds = [rng.randbytes(32) for _ in range(16)]
-    ed_pubs = [ecmath.ed25519_public_key(sd) for sd in ed_seeds]
-    tx_ids = [SecureHash(rng.randbytes(32)) for _ in range(MIXED_TXS)]
-    txs = [[_Sig(PublicKey(EDDSA_ED25519_SHA512, ed_pubs[t % 16]),
-                 ecmath.ed25519_sign(ed_seeds[t % 16], tx_ids[t].bytes,
-                                     public=ed_pubs[t % 16]))]
-           for t in range(MIXED_TXS)]
+    # mixed Ed25519/secp256k1/secp256r1 transactions through verify_signed
+    # (their ECDSA signatures on the process pool)
     with ProcessPoolExecutor(max_workers=min(8, os.cpu_count() or 1),
                              mp_context=ctx) as pool:
-        for name, scheme in schemes.items():
-            curve = _curve(name)
-            _, privs, pubs = ec_data[name]
-            jobs = [(name, privs[t % EC_SIGNERS], tx_ids[t].bytes)
-                    for t in range(MIXED_TXS)]
-            for t, (r, s) in enumerate(pool.map(_ecdsa_sign_job, jobs,
-                                                chunksize=16)):
-                if name == "secp256r1" and t % 8 == 3:
-                    s = s + 1 if s + 1 <= curve.n // 2 else s - 1
-                txs[t].append(_Sig(PublicKey(scheme, sec1_compress(
-                    curve, pubs[t % EC_SIGNERS])), ecmath.ecdsa_sig_to_der(
-                        r, s)))
+        stxs = mixed_transactions(args.seed + 17, ec_data, pool)
         oracle = {}
         for k, name in enumerate(schemes):
             checks, want, items = ec_bulk[name]
@@ -761,9 +1189,9 @@ def main() -> int:
     ed.verify_core_split.launches = 0
     wc.verify_core_hybrid_wide.launches = 0
     wc.verify_core_r1_split.launches = 0
+    services = SmokeServices()
     t0 = time.perf_counter()
-    futs = [svc.verify_signed(SmokeTransaction(tx_id, sigs), None)
-            for tx_id, sigs in zip(tx_ids, txs)]
+    futs = [svc.verify_signed(stx, services) for stx in stxs]
     outcomes = []
     for f in futs:
         try:
@@ -803,7 +1231,8 @@ def main() -> int:
         "breakers": {k: v["state"] for k, v in breakers.items()},
         "hybrid_k1_launches": k1_launches, "r1_split_launches": r1_launches,
         "r1_split_stats": wc.r1_split_stats(),
-        "mixed_txs": MIXED_TXS, "mixed_wall_s": mixed_s,
+        "mixed_txs": MIXED_TXS, "mixed_tx_type": type(stxs[0]).__name__,
+        "mixed_wall_s": mixed_s,
         "mixed_tx_per_s": MIXED_TXS / mixed_s,
         "mixed_device_checked": count(mixed_snap,
                                       "SigBatcher.DeviceChecked"),
@@ -823,10 +1252,11 @@ def main() -> int:
         "traced_device_busy_s": busy_s, "traced_kernel_s": kernel_s,
         "traced_device_idle_share": 1.0 - busy_s / traced_s})
     log(json.dumps({"path": "ecdsa", **ec_service}))
+    log_phase("service", t_phase)
 
     launches = {"ed25519_split_verify": ed_launches,
                 "secp256k1_hybrid_verify": k1_launches,
-                "secp256r1_split_verify": r1_launches}
+                "secp256r1_split_verify": r1_launches, **b6_launches}
     rows = []
     for name, meta in KERNELS.items():
         top = per_kernel[name][32768]
@@ -838,19 +1268,23 @@ def main() -> int:
             "ms": top["ms"], "plain_ms": top["plain_ms"],
             "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
             "library_ms": None})
+    for name, meta in B6_KERNELS.items():
+        fn = meta["row"][0]
+        top = b6_rows[meta["row"]]
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "corda_tpu_torch/csrc/sha256.cu",
+            "replaces": meta["replaces"], "launches": launches[name],
+            "max_abs_err": max(r["max_abs_err"] for (f, _), r in
+                               b6_rows.items() if f == fn),
+            "ms": top["ms"], "plain_ms": top["plain_ms"],
+            "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
+            "library_ms": None})
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
-
-
-class _Sig:
-    """A signature as the verifier service reads it (``by``, ``bytes``)."""
-
-    def __init__(self, by, sig_bytes):
-        self.by = by
-        self.bytes = sig_bytes
 
 
 if __name__ == "__main__":

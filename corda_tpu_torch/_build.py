@@ -1,6 +1,6 @@
 """Builds the port's native libraries from the repository's sources.
 
-Four shared libraries, all with a plain C interface loaded through ctypes:
+Five shared libraries, all with a plain C interface loaded through ctypes:
 
 - ``scalarmath``       — ``native/scalarmath.cpp`` (host scalar prep), by g++;
 - ``ed25519_split``    — ``csrc/ed25519_split.cu`` (kernel B2, Ed25519
@@ -8,7 +8,9 @@ Four shared libraries, all with a plain C interface loaded through ctypes:
 - ``secp256k1_hybrid`` — ``csrc/secp256k1_hybrid.cu`` (kernel B3, secp256k1
   hybrid-GLV verify) and
 - ``secp256r1_split``  — ``csrc/secp256r1_split.cu`` (kernel B4, secp256r1
-  half-gcd split verify), each by nvcc for ``sm_90a``.
+  half-gcd split verify) and
+- ``sha256``           — ``csrc/sha256.cu`` (kernel B6, batched SHA-256 and
+  Merkle levels), each by nvcc for ``sm_90a``.
 
 Each is built at first use into ``corda_tpu_torch/_build/`` (listed in
 ``.gitignore``) under a name that carries a hash of its sources and flags, so
@@ -94,6 +96,12 @@ _TARGETS = {
     "secp256r1_split": {
         "sources": [os.path.join(CSRC, "secp256r1_split.cu")],
         "deps": [os.path.join(CSRC, "field_p256.cuh")],
+        "flags": _NVCC_FLAGS,
+        "compiler": nvcc_path,
+    },
+    "sha256": {
+        "sources": [os.path.join(CSRC, "sha256.cu")],
+        "deps": [],
         "flags": _NVCC_FLAGS,
         "compiler": nvcc_path,
     },

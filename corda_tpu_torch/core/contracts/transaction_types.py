@@ -1,0 +1,137 @@
+"""Per-transaction-type platform validation rules.
+
+Reference parity: core/.../contracts/TransactionTypes.kt:1-177 — rule-for-rule:
+signers present, single notary, no duplicate inputs, encumbrance integrity, contract
+verify dispatch (General) / unmodified-but-notary check (NotaryChange).
+"""
+from __future__ import annotations
+
+from ..serialization import serializable
+from .exceptions import (
+    ContractRejection, DuplicateInputStates, InvalidNotaryChange,
+    MoreThanOneNotary, NotaryChangeInWrongTransactionType, SignersMissing,
+    TransactionMissingEncumbranceException, TransactionVerificationException,
+)
+
+
+class TransactionType:
+    """Singleton strategy objects: ``TransactionType.General`` and
+    ``TransactionType.NotaryChange``."""
+
+    General: "TransactionType"
+    NotaryChange: "TransactionType"
+
+    def verify(self, tx) -> None:
+        """Platform rules common to all types, then type-specific rules.
+        Presence of *signatures* is NOT checked here — only required keys
+        (TransactionTypes.kt:21-28)."""
+        if tx.notary is None and tx.time_window is not None:
+            raise TransactionVerificationException(
+                tx.id, "Transactions with time-windows must be notarised")
+        duplicates = self._detect_duplicate_inputs(tx)
+        if duplicates:
+            raise DuplicateInputStates(tx.id, duplicates)
+        missing = self.verify_signers(tx)
+        if missing:
+            raise SignersMissing(tx.id, sorted(missing))
+        self.verify_transaction(tx)
+
+    def verify_signers(self, tx) -> set:
+        notary_keys = {inp.state.notary.owning_key for inp in tx.inputs}
+        if len(notary_keys) > 1:
+            raise MoreThanOneNotary(tx.id)
+        required = self.get_required_signers(tx) | notary_keys
+        return required - set(tx.must_sign)
+
+    @staticmethod
+    def _detect_duplicate_inputs(tx) -> set:
+        seen, dups = set(), set()
+        for inp in tx.inputs:
+            if inp.ref in seen:
+                dups.add(inp.ref)
+            seen.add(inp.ref)
+        return dups
+
+    def get_required_signers(self, tx) -> set:
+        raise NotImplementedError
+
+    def verify_transaction(self, tx) -> None:
+        raise NotImplementedError
+
+    def __eq__(self, other):
+        return type(self) is type(other)
+
+    def __hash__(self):
+        return hash(type(self))
+
+    def __repr__(self):
+        return f"TransactionType.{type(self).__name__.lstrip('_')}"
+
+
+@serializable("TransactionType.General", to_fields=lambda t: [],
+              from_fields=lambda f: TransactionType.General)
+class _General(TransactionType):
+    def get_required_signers(self, tx) -> set:
+        return {k for cmd in tx.commands for k in cmd.signers}
+
+    def verify_transaction(self, tx) -> None:
+        self._verify_no_notary_change(tx)
+        self._verify_encumbrances(tx)
+        self._verify_contracts(tx)
+
+    @staticmethod
+    def _verify_no_notary_change(tx):
+        if tx.notary is not None and tx.inputs:
+            for out in tx.outputs:
+                if out.notary != tx.notary:
+                    raise NotaryChangeInWrongTransactionType(tx.id, tx.notary, out.notary)
+
+    @staticmethod
+    def _verify_encumbrances(tx):
+        for inp in tx.inputs:
+            enc = inp.state.encumbrance
+            if enc is None:
+                continue
+            if not any(o.ref.txhash == inp.ref.txhash and o.ref.index == enc
+                       for o in tx.inputs):
+                raise TransactionMissingEncumbranceException(
+                    tx.id, enc, TransactionMissingEncumbranceException.INPUT)
+        for i, out in enumerate(tx.outputs):
+            enc = out.encumbrance
+            if enc is None:
+                continue
+            if enc < 0 or enc == i or enc >= len(tx.outputs):
+                raise TransactionMissingEncumbranceException(
+                    tx.id, enc, TransactionMissingEncumbranceException.OUTPUT)
+
+    @staticmethod
+    def _verify_contracts(tx):
+        ctx = tx.to_transaction_for_contract()
+        contracts = []
+        for st in list(ctx.inputs) + list(ctx.outputs):
+            if st.contract not in contracts:
+                contracts.append(st.contract)
+        for contract in contracts:
+            try:
+                contract.verify(ctx)
+            except Exception as e:
+                raise ContractRejection(tx.id, contract, e) from e
+
+
+@serializable("TransactionType.NotaryChange", to_fields=lambda t: [],
+              from_fields=lambda f: TransactionType.NotaryChange)
+class _NotaryChange(TransactionType):
+    def get_required_signers(self, tx) -> set:
+        return {k.owning_key if hasattr(k, "owning_key") else k
+                for inp in tx.inputs for k in inp.state.data.participants}
+
+    def verify_transaction(self, tx) -> None:
+        ok = (len(tx.inputs) == len(tx.outputs) and not tx.commands and all(
+            inp.state.data == out.data and inp.state.notary != out.notary
+            for inp, out in zip(tx.inputs, tx.outputs)))
+        if not ok:
+            raise InvalidNotaryChange(tx.id)
+
+
+TransactionType.General = _General()
+TransactionType.NotaryChange = _NotaryChange()

@@ -1,5 +1,5 @@
-"""Host-side cryptography for the verification path: hashing, signature
-schemes, keys and the ``Crypto`` facade (copies of corda_tpu.core.crypto's
+"""Host-side cryptography: hashing, signature schemes, keys, the ``Crypto``
+facade, composite keys and Merkle trees (copies of corda_tpu.core.crypto's
 modules of the same names; SPHINCS-256 and RSA are not ported yet)."""
 from .secure_hash import SecureHash, sha256, sha256_twice, hash_concat
 from .schemes import (
@@ -16,6 +16,8 @@ from .schemes import (
 )
 from .keys import PublicKey, PrivateKey, KeyPair, generate_keypair
 from .signatures import DigitalSignature, TransactionSignature, Crypto
+from .composite import CompositeKey, CompositeSignature, CompositeSignaturesWithKeys
+from .merkle import MerkleTree, PartialMerkleTree, MerkleTreeException
 from .base58 import b58encode, b58decode
 
 __all__ = [
@@ -25,5 +27,7 @@ __all__ = [
     "ALL_SCHEMES", "DEFAULT_SIGNATURE_SCHEME", "scheme_by_id",
     "PublicKey", "PrivateKey", "KeyPair", "generate_keypair",
     "DigitalSignature", "TransactionSignature", "Crypto",
+    "CompositeKey", "CompositeSignature", "CompositeSignaturesWithKeys",
+    "MerkleTree", "PartialMerkleTree", "MerkleTreeException",
     "b58encode", "b58decode",
 ]

@@ -1,0 +1,167 @@
+"""Weighted-threshold composite keys.
+
+Reference parity: core/.../crypto/composite/CompositeKey.kt:35 — a ``PublicKey``
+implementation that is a tree of (child key, weight) nodes with a per-node threshold.
+A composite key is fulfilled by a set of leaf keys iff the sum of the weights of the
+fulfilled children reaches the threshold, recursively.
+
+The device verification pipeline evaluates composite thresholds on the HOST over the
+batch of per-leaf device verdicts (SURVEY.md §7 phase 1): the device returns one
+bool per (key, sig, msg) triple; this module folds them through the key tree.
+"""
+from __future__ import annotations
+
+import struct
+from dataclasses import dataclass
+
+from .keys import PublicKey
+from .schemes import COMPOSITE_KEY
+
+
+@dataclass(frozen=True)
+class NodeAndWeight:
+    node: PublicKey  # leaf key or nested CompositeKey
+    weight: int
+
+
+class CompositeKey(PublicKey):
+    """Immutable weighted-threshold key tree. Equality via canonical encoding."""
+
+    __slots__ = ("threshold", "children")
+
+    def __init__(self, threshold: int, children: tuple[NodeAndWeight, ...]):
+        children = tuple(sorted(children, key=lambda nw: (nw.node.scheme.scheme_number_id,
+                                                          nw.node.encoded)))
+        self.threshold = threshold
+        self.children = children
+        super().__init__(COMPOSITE_KEY, self._encode())
+        self._validate()
+
+    # -- construction --------------------------------------------------------
+    class Builder:
+        def __init__(self):
+            self._children: list[NodeAndWeight] = []
+
+        def add_key(self, key: PublicKey, weight: int = 1) -> "CompositeKey.Builder":
+            self._children.append(NodeAndWeight(key, weight))
+            return self
+
+        def add_keys(self, *keys: PublicKey) -> "CompositeKey.Builder":
+            for k in keys:
+                self.add_key(k)
+            return self
+
+        def build(self, threshold: int | None = None) -> PublicKey:
+            n = len(self._children)
+            if n == 0:
+                raise ValueError("Cannot build CompositeKey with zero children")
+            if n == 1 and threshold in (None, self._children[0].weight):
+                # Collapsing single-child trees mirrors the reference builder.
+                return self._children[0].node
+            t = threshold if threshold is not None else sum(c.weight for c in self._children)
+            return CompositeKey(t, tuple(self._children))
+
+    def _validate(self):
+        if self.threshold <= 0:
+            raise ValueError("CompositeKey threshold must be positive")
+        total = 0
+        seen = set()
+        for c in self.children:
+            if c.weight <= 0:
+                raise ValueError("CompositeKey child weights must be positive")
+            if c.node in seen:
+                raise ValueError("CompositeKey must not contain duplicate child keys")
+            seen.add(c.node)
+            total += c.weight
+        if self.threshold > total:
+            raise ValueError("CompositeKey threshold exceeds sum of weights")
+        # No cycle check needed: trees are built bottom-up from immutable by-value
+        # nodes, so a node can never contain itself (unlike the reference's
+        # by-reference Java object graphs, CompositeKey.kt cycle detection).
+
+    def _encode(self) -> bytes:
+        parts = [struct.pack(">BI H", 0xC0, self.threshold, len(self.children))]
+        for c in self.children:
+            enc = c.node.encoded
+            parts.append(struct.pack(">I B I", c.weight,
+                                     c.node.scheme.scheme_number_id, len(enc)))
+            parts.append(enc)
+        return b"".join(parts)
+
+    @staticmethod
+    def decode(data: bytes) -> "CompositeKey":
+        """Strict decode: bounds-checked, full-consumption (rejects trailing bytes)
+        so each key has exactly one accepted encoding."""
+        from .schemes import scheme_by_id
+        try:
+            tag, threshold, n = struct.unpack_from(">BI H", data, 0)
+        except struct.error:
+            raise ValueError("Truncated composite key encoding")
+        if tag != 0xC0:
+            raise ValueError("Not a composite key encoding")
+        off = struct.calcsize(">BI H")
+        hdr = struct.calcsize(">I B I")
+        children = []
+        for _ in range(n):
+            try:
+                weight, sid, ln = struct.unpack_from(">I B I", data, off)
+            except struct.error:
+                raise ValueError("Truncated composite key child header")
+            off += hdr
+            if off + ln > len(data):
+                raise ValueError("Composite key child length exceeds buffer")
+            enc = data[off:off + ln]
+            off += ln
+            if sid == COMPOSITE_KEY.scheme_number_id:
+                child: PublicKey = CompositeKey.decode(enc)
+            else:
+                child = PublicKey(scheme_by_id(sid), enc)
+            children.append(NodeAndWeight(child, weight))
+        if off != len(data):
+            raise ValueError("Trailing bytes after composite key encoding")
+        return CompositeKey(threshold, tuple(children))
+
+    # -- fulfilment ----------------------------------------------------------
+    @property
+    def keys(self) -> frozenset[PublicKey]:
+        out: set[PublicKey] = set()
+        for c in self.children:
+            out |= c.node.keys
+        return frozenset(out)
+
+    def is_fulfilled_by(self, keys) -> bool:
+        if isinstance(keys, PublicKey):
+            keys = (keys,)
+        key_set = set(keys)
+        total = 0
+        for c in self.children:
+            ok = (c.node.is_fulfilled_by(key_set) if isinstance(c.node, CompositeKey)
+                  else c.node in key_set)
+            if ok:
+                total += c.weight
+                if total >= self.threshold:
+                    return True
+        return False
+
+    def __repr__(self):
+        return f"CompositeKey(threshold={self.threshold}, children={len(self.children)})"
+
+
+@dataclass(frozen=True)
+class CompositeSignaturesWithKeys:
+    """A bundle of leaf signatures intended to satisfy a composite key."""
+
+    sigs: tuple  # tuple[DigitalSignatureWithKey, ...]
+
+
+class CompositeSignature:
+    """Verification of a composite key from leaf signatures: every provided leaf
+    signature must itself verify, and the fulfilled leaves must reach the threshold."""
+
+    @staticmethod
+    def verify(composite: CompositeKey, content: bytes, sigs: CompositeSignaturesWithKeys) -> bool:
+        valid_keys = set()
+        for sig in sigs.sigs:
+            if sig.is_valid(content):
+                valid_keys.add(sig.by)
+        return composite.is_fulfilled_by(valid_keys)

@@ -1,0 +1,192 @@
+"""Bulk tear-off proof checks and bulk transaction ids on the card — the
+production seams of ``ops.sha256``'s Merkle kernels (B6).
+
+Port of corda_tpu/core/transactions/batch_merkle.py. Reference parity: the
+oracle's bulk attestation path verifies one FilteredTransaction per request
+(NodeInterestRates.kt:149-180 → MerkleTransaction.kt:70-170 →
+PartialMerkleTree host hashing). Here N proofs verify together: every
+partial tree's internal nodes are grouped into depth rounds (a node's
+children always resolve in an earlier round), and each round's 64-byte
+(left ‖ right) concatenations hash in ONE ``hash_pairs`` launch. Below
+``device_crossover`` pairs a round stays on hashlib.
+
+Device rule: both entry points take ``device`` (default ``"cuda"``). A round
+(or a ``batch_roots`` size group) that reaches the crossover hashes on that
+device — with ``device="cpu"`` through the plain PyTorch version — and
+without CUDA the default raises as ``device.resolve_device`` does; it never
+hashes on the host instead. ``use_device=False`` keeps everything on
+hashlib.
+
+Bit-exactness: ``hash_pairs``/``merkle_root`` are held against hashlib and
+the JAX kernels (tests/test_torch_sha256.py) and this module against the
+JAX package's (tests/test_torch_transactions.py).
+"""
+from __future__ import annotations
+
+import hashlib
+
+import numpy as np
+
+from ...device import DEFAULT_DEVICE, resolve_device
+from ...ops import sha256 as sha_ops
+from ..crypto.merkle import (MerkleTree, _IncludedLeaf, _Leaf, _Node,
+                             pad_to_power_of_two)
+from ..crypto.secure_hash import SecureHash
+
+#: Minimum pairs in a round (or in a ``batch_roots`` size group) before it
+#: routes to the kernel; smaller work stays on hashlib. The same value and
+#: rule as the JAX package; the H100's own crossover is measured by
+#: chip_smoke.py and recorded in PERF.md.
+DEVICE_CROSSOVER = 1 << 17
+
+#: Hard depth cap on a partial tree walk.  A genuine proof over K
+#: components is ~log2(K) deep (depth 64 covers 10^19 leaves); anything
+#:  deeper is a hostile/corrupt structure built to exhaust the verifier.
+#: The traversal is ITERATIVE, so a deep chain can't blow the Python
+#: recursion limit — the cap just bounds the work and marks that one
+#: member False while the rest of the batch verifies normally.
+MAX_PROOF_DEPTH = 512
+
+
+def _walk_partial_tree(root, values: dict, rounds: list,
+                       included: list) -> bool:
+    """Iterative post-order walk of one ftx's partial tree into ``values``
+    (node id → hash bytes for resolved nodes) and ``rounds`` (internal
+    nodes grouped by depth).  Returns False — leaving the caller's dicts
+    untouched — on a malformed node type or a tree deeper than
+    ``MAX_PROOF_DEPTH``."""
+    local_values: dict[int, bytes] = {}
+    local_rounds: list[list[_Node]] = []
+    local_included: list[bytes] = []
+    depth_of: dict[int, int] = {}
+    stack: list[tuple] = [(root, False)]
+    while stack:
+        # a left-leaning chain holds ~its depth in unvisited frames; bail
+        # before a hostile 10^6-node path burns CPU on a doomed proof
+        if len(stack) > 2 * MAX_PROOF_DEPTH + 2:
+            return False
+        node, visited = stack.pop()
+        if isinstance(node, _IncludedLeaf):
+            local_values[id(node)] = node.hash.bytes
+            local_included.append(node.hash.bytes)
+            depth_of[id(node)] = 0
+        elif isinstance(node, _Leaf):
+            local_values[id(node)] = node.hash.bytes
+            depth_of[id(node)] = 0
+        elif isinstance(node, _Node):
+            if not visited:
+                stack.append((node, True))
+                stack.append((node.right, False))
+                stack.append((node.left, False))
+            else:
+                d = max(depth_of[id(node.left)],
+                        depth_of[id(node.right)]) + 1
+                if d > MAX_PROOF_DEPTH:
+                    return False
+                while len(local_rounds) < d:
+                    local_rounds.append([])
+                local_rounds[d - 1].append(node)
+                depth_of[id(node)] = d
+        else:
+            return False   # not a partial-tree node at all
+    values.update(local_values)
+    while len(rounds) < len(local_rounds):
+        rounds.append([])
+    for i, rnd in enumerate(local_rounds):
+        rounds[i].extend(rnd)
+    included.extend(local_included)
+    return True
+
+
+def _words(buf: bytes, *shape) -> np.ndarray:
+    """Big-endian 32-bit words of ``buf`` as a uint32 array of ``shape``
+    (one ``frombuffer`` over the joined bytes)."""
+    return np.frombuffer(buf, dtype=">u4").astype(np.uint32).reshape(shape)
+
+
+def verify_filtered_batch(ftxs, device_crossover: int = DEVICE_CROSSOVER,
+                          use_device: bool = True,
+                          device=DEFAULT_DEVICE) -> list[bool]:
+    """Verify N FilteredTransactions' Merkle proofs together.
+
+    Returns one bool per ftx: True iff the partial tree rebuilds to
+    ``root_hash`` AND the included leaves are exactly the revealed
+    components (the same two checks as ``FilteredTransaction.verify``).
+    An ftx with no revealed components verifies False (the single-item
+    API raises ValueError there), as does one whose partial tree is
+    malformed or hostile-deep (``MAX_PROOF_DEPTH``) — a batch must not
+    let one malformed member abort the rest (the per-item-isolation rule
+    of verifier/batcher.py). Rounds of at least ``device_crossover``
+    pairs hash on ``device`` (see the module's device rule)."""
+    values: dict[int, bytes] = {}
+    rounds: list[list[_Node]] = []
+    per_ftx: list[tuple] = []
+
+    for ftx in ftxs:
+        included: list[bytes] = []
+        try:
+            root = ftx.partial_merkle_tree.root
+            ok = _walk_partial_tree(root, values, rounds, included)
+        except Exception:
+            root, ok = None, False
+        per_ftx.append((root, included) if ok else (None, included))
+
+    for rnd in rounds:
+        pairs = b"".join(values[id(n.left)] + values[id(n.right)]
+                         for n in rnd)
+        if use_device and len(rnd) >= device_crossover:
+            dev = resolve_device(device)
+            arr = sha_ops.as_words(_words(pairs, len(rnd), 16)).to(dev)
+            outs = sha_ops.digests_to_bytes(sha_ops.hash_pairs(arr))
+        else:
+            outs = [hashlib.sha256(pairs[i * 64:(i + 1) * 64]).digest()
+                    for i in range(len(rnd))]
+        for n, digest in zip(rnd, outs):
+            values[id(n)] = digest
+
+    verdicts = []
+    for ftx, (root, included) in zip(ftxs, per_ftx):
+        if root is None:   # walk rejected it (malformed / too deep)
+            verdicts.append(False)
+            continue
+        try:
+            want = {h.bytes for h in
+                    ftx.filtered_leaves.available_component_hashes}
+            verdicts.append(bool(want)
+                            and values[id(root)] == ftx.root_hash.bytes
+                            and set(included) == want)
+        except Exception:
+            verdicts.append(False)
+    return verdicts
+
+
+def batch_roots(leaf_hash_lists: list[list[SecureHash]],
+                device_crossover: int = DEVICE_CROSSOVER,
+                use_device: bool = True,
+                device=DEFAULT_DEVICE) -> list[SecureHash]:
+    """Merkle roots for N transactions' component-hash lists in size-grouped
+    batches (MerkleTree.root_hash semantics: zero-pad each list to the next
+    power of two, single-SHA-256 combine).  The bulk sibling of
+    ``WireTransaction.id`` for ledger replay / loadtest firehoses. A size
+    group of at least ``device_crossover`` pairs per level runs
+    ``merkle_root`` on ``device`` (see the module's device rule)."""
+    out: list[SecureHash | None] = [None] * len(leaf_hash_lists)
+    by_size: dict[int, list[int]] = {}
+    for i, hashes in enumerate(leaf_hash_lists):
+        if not hashes:
+            raise ValueError("Cannot calculate Merkle root on empty hash list.")
+        padded = pad_to_power_of_two(hashes)
+        by_size.setdefault(len(padded), []).append(i)
+    for size, idxs in by_size.items():
+        if not use_device or len(idxs) * max(size // 2, 1) < device_crossover:
+            for i in idxs:
+                out[i] = MerkleTree.root_hash(leaf_hash_lists[i])
+            continue
+        dev = resolve_device(device)
+        buf = b"".join(h.bytes for i in idxs
+                       for h in pad_to_power_of_two(leaf_hash_lists[i]))
+        stacked = sha_ops.as_words(_words(buf, len(idxs), size, 8)).to(dev)
+        roots = sha_ops.digests_to_bytes(sha_ops.merkle_root(stacked))
+        for i, rb in zip(idxs, roots):
+            out[i] = SecureHash(rb)
+    return out

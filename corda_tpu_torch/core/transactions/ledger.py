@@ -1,0 +1,134 @@
+"""LedgerTransaction — the fully-resolved, verifiable transaction form, and the
+contract-facing view handed to contract ``verify()`` code.
+
+Reference parity: LedgerTransaction.kt (verify → type.verify, :62) and
+TransactionForContract (Structures.kt groupStates — the grouping combinator the
+asset contracts are written against).
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Callable
+
+from ..contracts.structures import (Attachment, AuthenticatedObject, StateAndRef,
+                                    TimeWindow, TransactionState)
+from ..contracts.transaction_types import TransactionType
+from ..crypto.keys import PublicKey
+from ..crypto.secure_hash import SecureHash
+from ..identity import Party
+
+
+@dataclass(frozen=True)
+class InOutGroup:
+    """States grouped by a key (e.g. (issuer, currency)) across inputs/outputs."""
+
+    inputs: list
+    outputs: list
+    grouping_key: Any
+
+
+@dataclass(frozen=True)
+class TransactionForContract:
+    """What contract code sees: raw states (not TransactionStates), commands with
+    resolved signer identities, and the tx metadata."""
+
+    inputs: tuple  # ContractState...
+    outputs: tuple  # ContractState...
+    attachments: tuple[Attachment, ...]
+    commands: tuple[AuthenticatedObject, ...]
+    id: SecureHash
+    notary: Party | None
+    time_window: TimeWindow | None = None
+    input_notary: Party | None = None
+
+    def group_states(self, of_type: type, grouping_fn: Callable[[Any], Any]) -> list[InOutGroup]:
+        """Group inputs and outputs of ``of_type`` by ``grouping_fn`` — fungible-asset
+        contracts verify conservation per group (Structures.kt groupStates)."""
+        groups: dict[Any, InOutGroup] = {}
+
+        def bucket(key):
+            if key not in groups:
+                groups[key] = InOutGroup([], [], key)
+            return groups[key]
+
+        for s in self.inputs:
+            if isinstance(s, of_type):
+                bucket(grouping_fn(s)).inputs.append(s)
+        for s in self.outputs:
+            if isinstance(s, of_type):
+                bucket(grouping_fn(s)).outputs.append(s)
+        return list(groups.values())
+
+    def commands_of_type(self, of_type: type) -> list[AuthenticatedObject]:
+        return [c for c in self.commands if isinstance(c.value, of_type)]
+
+
+class LedgerTransaction:
+    """Resolved transaction: inputs are StateAndRefs, attachments are open blobs,
+    command signers carry resolved identities. ``verify()`` applies the platform
+    rules then contract code; the async device-batched variant goes through
+    ``TransactionVerifierService`` instead (Services.kt:544-550 seam)."""
+
+    __slots__ = ("inputs", "outputs", "commands", "attachments", "id", "notary",
+                 "must_sign", "type", "time_window")
+
+    def __init__(self, inputs: tuple[StateAndRef, ...],
+                 outputs: tuple[TransactionState, ...],
+                 commands: tuple[AuthenticatedObject, ...],
+                 attachments: tuple[Attachment, ...],
+                 id: SecureHash, notary: Party | None,
+                 must_sign: tuple[PublicKey, ...],
+                 type: TransactionType | None,
+                 time_window: TimeWindow | None):
+        self.inputs = tuple(inputs)
+        self.outputs = tuple(outputs)
+        self.commands = tuple(commands)
+        self.attachments = tuple(attachments)
+        self.id = id
+        self.notary = notary
+        self.must_sign = tuple(must_sign)
+        self.type = type if type is not None else TransactionType.General
+        self.time_window = time_window
+
+    def verify(self) -> None:
+        """Host-side synchronous verification (LedgerTransaction.kt:62)."""
+        self.type.verify(self)
+
+    def to_transaction_for_contract(self) -> TransactionForContract:
+        return TransactionForContract(
+            inputs=tuple(i.state.data for i in self.inputs),
+            outputs=tuple(o.data for o in self.outputs),
+            attachments=self.attachments,
+            commands=self.commands,
+            id=self.id,
+            notary=self.notary,
+            time_window=self.time_window,
+            input_notary=self.inputs[0].state.notary if self.inputs else None)
+
+    def out_ref(self, index: int) -> StateAndRef:
+        from ..contracts.structures import StateRef
+        return StateAndRef(self.outputs[index], StateRef(self.id, index))
+
+    def __eq__(self, other):
+        return isinstance(other, LedgerTransaction) and self.id == other.id
+
+    def __hash__(self):
+        return hash(self.id)
+
+    def __repr__(self):
+        return f"LedgerTransaction(id={self.id.prefix_chars()})"
+
+
+# Wire registration: the out-of-process verifier protocol ships whole
+# LedgerTransactions (VerifierApi.kt:17-59 parity).
+from ..serialization import register_type as _register_type  # noqa: E402
+
+_register_type("AuthenticatedObject", AuthenticatedObject,
+               to_fields=lambda a: [list(a.signers), list(a.signing_parties), a.value],
+               from_fields=lambda f: AuthenticatedObject(tuple(f[0]), tuple(f[1]), f[2]))
+_register_type(
+    "LedgerTransaction", LedgerTransaction,
+    to_fields=lambda tx: [list(tx.inputs), list(tx.outputs), list(tx.commands),
+                          list(tx.attachments), tx.id, tx.notary, list(tx.must_sign),
+                          tx.type, tx.time_window],
+    from_fields=lambda f: LedgerTransaction(*f))

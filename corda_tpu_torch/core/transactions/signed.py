@@ -1,16 +1,126 @@
-"""SignaturesMissingException — copy of corda_tpu.core.transactions.signed's.
+"""SignedTransaction — serialized wire bytes + signatures over the id.
 
-The verifier service raises it when a transaction's required signers are not
-all covered. ``id`` is duck-typed (anything with ``prefix_chars()``), so the
-service can check transactions built by either package."""
+Reference parity: SignedTransaction.kt — checkSignaturesAreValid (:96-100) verifies
+each signature cryptographically against the id; verifySignatures (:71-85) then
+checks the *coverage* of required keys (CompositeKey thresholds included), with an
+``allowed_to_be_missing`` escape for counterparties collecting signatures.
+
+The device path (``verifier.service.TpuTransactionVerifierService.verify_signed``)
+batches the per-signature EC verifications of MANY transactions into one
+kernel launch per scheme (the north-star seam); coverage checking stays
+host-side. ``SignaturesMissingException`` reads only ``id.prefix_chars()``,
+so the service raises it for transactions of either package.
+"""
 from __future__ import annotations
 
-from ..crypto.signatures import SignatureException
+from functools import cached_property
+
+from ..crypto.keys import PublicKey
+from ..crypto.secure_hash import SecureHash
+from ..crypto.signatures import DigitalSignatureWithKey, SignatureException
+from ..serialization import deserialize, register_type
+from .wire import WireTransaction
 
 
 class SignaturesMissingException(SignatureException):
-    def __init__(self, missing, descriptions: list[str], id):
+    def __init__(self, missing: set[PublicKey], descriptions: list[str], id: SecureHash):
         super().__init__(f"Missing signatures for {descriptions} on transaction "
                          f"{id.prefix_chars()}")
         self.missing = missing
         self.id = id
+
+
+class SignedTransaction:
+    def __init__(self, tx_bits: bytes, sigs: tuple[DigitalSignatureWithKey, ...]):
+        if not sigs:
+            raise ValueError("Tried to instantiate a SignedTransaction without signatures")
+        self.tx_bits = bytes(tx_bits)
+        self.sigs = tuple(sigs)
+
+    @staticmethod
+    def of(wtx: WireTransaction, sigs) -> "SignedTransaction":
+        stx = SignedTransaction(wtx.serialized, tuple(sigs))
+        stx.__dict__["tx"] = wtx  # prime the cache; avoids a deserialize round-trip
+        return stx
+
+    @cached_property
+    def tx(self) -> WireTransaction:
+        wtx = deserialize(self.tx_bits)
+        if not isinstance(wtx, WireTransaction):
+            raise ValueError("tx_bits do not contain a WireTransaction")
+        return wtx
+
+    @property
+    def id(self) -> SecureHash:
+        return self.tx.id
+
+    @property
+    def inputs(self):
+        return self.tx.inputs
+
+    @property
+    def notary(self):
+        return self.tx.notary
+
+    # -- signature checking -------------------------------------------------
+    def check_signatures_are_valid(self) -> None:
+        """Cryptographically verify every attached signature against the id.
+        Does NOT check coverage (SignedTransaction.kt:96-100)."""
+        for sig in self.sigs:
+            sig.verify(self.id.bytes)
+
+    def verify_signatures(self, *allowed_to_be_missing: PublicKey) -> set[PublicKey]:
+        """Full check: all sigs valid AND every required key fulfilled, except those
+        explicitly allowed to be missing. Returns the missing set."""
+        self.check_signatures_are_valid()
+        missing = self.get_missing_signatures()
+        if missing:
+            allowed = set(allowed_to_be_missing)
+            needed = missing - allowed
+            if needed:
+                raise SignaturesMissingException(
+                    needed, [k.to_string_short() for k in needed], self.id)
+        return missing
+
+    def get_missing_signatures(self) -> set[PublicKey]:
+        sig_keys = {s.by for s in self.sigs}
+        return {k for k in self.tx.must_sign if not k.is_fulfilled_by(sig_keys)}
+
+    # -- combination --------------------------------------------------------
+    def plus(self, *sigs: DigitalSignatureWithKey) -> "SignedTransaction":
+        combined = self.sigs + tuple(s for s in sigs if s not in self.sigs)
+        stx = SignedTransaction(self.tx_bits, combined)
+        if "tx" in self.__dict__:
+            stx.__dict__["tx"] = self.__dict__["tx"]
+        return stx
+
+    def with_additional_signature(self, sig: DigitalSignatureWithKey) -> "SignedTransaction":
+        return self.plus(sig)
+
+    # -- resolution / full verify -------------------------------------------
+    def to_ledger_transaction(self, services):
+        return self.tx.to_ledger_transaction(services)
+
+    def verify(self, services, check_sufficient_signatures: bool = True) -> None:
+        """Synchronous host verify (SignedTransaction.kt:174-178): signatures, then
+        resolution, then contract/platform rules."""
+        if check_sufficient_signatures:
+            self.verify_signatures()
+        else:
+            self.check_signatures_are_valid()
+        self.to_ledger_transaction(services).verify()
+
+    def __eq__(self, other):
+        return (isinstance(other, SignedTransaction)
+                and self.id == other.id and self.sigs == other.sigs)
+
+    def __hash__(self):
+        return hash((self.id, self.sigs))
+
+    def __repr__(self):
+        return f"SignedTransaction(id={self.id.prefix_chars()}, {len(self.sigs)} sigs)"
+
+
+register_type("SignedTransaction", SignedTransaction,
+              to_fields=lambda s: [s.tx_bits, list(s.sigs)],
+              from_fields=lambda f: SignedTransaction(f[0], tuple(f[1])))

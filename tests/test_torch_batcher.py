@@ -445,3 +445,26 @@ def test_profile_dir_exports_a_torch_profiler_trace(tmp_path, monkeypatch):
     events = json.loads(traces[0].read_text())["traceEvents"]
     assert any(e.get("name", "").startswith("verify-ed25519-")
                for e in events)
+
+
+def test_secp256k1_counters_match_the_jax_device_route():
+    """A small secp256k1 set through both batchers' device routes
+    (host_crossover=0; the JAX batcher traces its hybrid kernel once, at
+    bucket 8): the same verdicts, the same Checked, DeviceChecked,
+    DeviceBatches, HostRouted and BatchFailure counts, and the same
+    breaker states."""
+    checks = _ecdsa_checks(ECDSA_SECP256K1_SHA256, 7)
+    want = [bool(JaxCrypto.is_valid(*c)) for c in checks]
+    assert want == [True] + [False] * 5 + [True]
+    jb = JaxBatcher(host_crossover=0, max_latency_s=0.01)
+    tb = SignatureBatcher(device="cpu", host_crossover=0, max_latency_s=0.01)
+    try:
+        assert jb.submit_group(checks).result(timeout=600) == want
+        assert tb.submit_group(checks).result(timeout=600) == want
+        assert _counts(tb) == _counts(jb)
+        assert _counts(tb)["SigBatcher.DeviceChecked"] == len(checks)
+        assert _counts(tb)["SigBatcher.DeviceBatches"] == 1
+        assert tb.breaker_status() == jb.breaker_status()
+    finally:
+        jb.close()
+        tb.close()

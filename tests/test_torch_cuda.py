@@ -6,9 +6,10 @@ torch.cuda.is_available() is False). On a machine with an NVIDIA GPU:
 (``--noconftest``: the suite's conftest imports JAX, which the GPU machine
 lacks.)
 
-Each CUDA kernel (B2 Ed25519, B3 secp256k1, B4 secp256r1) must give the
-same verdicts as its plain PyTorch version, bit for bit, and the batcher's
-device routes must run on them.
+Each CUDA kernel (B2 Ed25519, B3 secp256k1, B4 secp256r1, B6 SHA-256/
+Merkle) must give the same results as its plain PyTorch version, bit for
+bit, the batcher's device routes must run on B2-B4 and the Merkle seams of
+batch_merkle on B6.
 """
 import hashlib
 
@@ -225,3 +226,142 @@ def test_batcher_on_the_card_raises_when_an_ecdsa_kernel_cannot_build(
         for load in (ed.load_kernel, wc.load_hybrid_kernel,
                      wc.load_r1_split_kernel):
             load.cache_clear()
+
+
+# ---------------------------------------------------------------------------
+# B6: SHA-256 / Merkle
+# ---------------------------------------------------------------------------
+
+def _words(rng, *shape):
+    return rng.integers(0, 1 << 32, shape, dtype=np.uint64).astype(np.uint32)
+
+
+def _host_root(leaves: bytes) -> bytes:
+    level = [leaves[i:i + 32] for i in range(0, len(leaves), 32)]
+    while len(level) > 1:
+        level = [hashlib.sha256(level[i] + level[i + 1]).digest()
+                 for i in range(0, len(level), 2)]
+    return level[0]
+
+
+@pytest.mark.parametrize("n", [1, 7, 255, 1000, 4097])
+def test_b6_hash_pairs_matches_plain_and_hashlib_at_ragged_sizes(cuda, n):
+    from corda_tpu_torch.ops import sha256 as sha
+    pairs = _words(np.random.default_rng(n), n, 16)
+    t = sha.as_words(pairs).to(cuda)
+    before = sha.hash_pairs.launches
+    got = sha.hash_pairs(t)
+    torch.cuda.synchronize()
+    assert sha.hash_pairs.launches == before + 1
+    assert got.device == t.device
+    assert torch.equal(got.cpu(), sha.hash_pairs_plain(t).cpu())
+    raw = pairs.astype(">u4").tobytes()
+    assert sha.digests_to_bytes(got) == [
+        hashlib.sha256(raw[64 * i:64 * i + 64]).digest() for i in range(n)]
+
+
+@pytest.mark.parametrize("n_blocks", [1, 2, 5])
+def test_b6_sha256_blocks_matches_plain_and_hashlib(cuda, n_blocks):
+    from corda_tpu_torch.ops import sha256 as sha
+    rng = np.random.default_rng(n_blocks)
+    lo, hi = 64 * (n_blocks - 1), 64 * n_blocks - 9
+    msgs = [rng.bytes(int(rng.integers(lo, hi + 1))) for _ in range(333)]
+    t = sha.as_words(sha.pack_batch(msgs)).to(cuda)
+    before = sha.sha256_blocks.launches
+    got = sha.sha256_blocks(t)
+    torch.cuda.synchronize()
+    assert sha.sha256_blocks.launches == before + 1
+    assert torch.equal(got.cpu(), sha.sha256_blocks_plain(t).cpu())
+    assert sha.digests_to_bytes(got) == [hashlib.sha256(m).digest()
+                                         for m in msgs]
+
+
+def test_b6_merkle_root_with_leading_batch_dims(cuda):
+    from corda_tpu_torch.ops import sha256 as sha
+    leaves = _words(np.random.default_rng(9), 2, 3, 16, 8)
+    t = sha.as_words(leaves).to(cuda)
+    before = sha.merkle_root.launches
+    got = sha.merkle_root(t)
+    torch.cuda.synchronize()
+    assert got.shape == (2, 3, 8)
+    assert sha.merkle_root.launches == before + 4      # one per level
+    assert torch.equal(got.cpu(), sha.merkle_root_plain(t).cpu())
+    for idx in np.ndindex(2, 3):
+        assert (sha.digests_to_bytes(got[idx][None])[0]
+                == _host_root(leaves[idx].astype(">u4").tobytes()))
+    one = sha.as_words(_words(np.random.default_rng(10), 1, 8)).to(cuda)
+    assert torch.equal(sha.merkle_root(one).cpu(), one[0].cpu())
+    assert sha.merkle_root.launches == before + 4
+
+
+def _port_tear_offs(n):
+    """``n`` oracle-shaped tear-offs revealing their Fix command, every
+    fourth with a wrong root, built by the port alone."""
+    from corda_tpu_torch.core.contracts import Command, TransactionState
+    from corda_tpu_torch.core.crypto import PublicKey, SecureHash
+    from corda_tpu_torch.core.crypto.schemes import EDDSA_ED25519_SHA512
+    from corda_tpu_torch.core.identity import Party
+    from corda_tpu_torch.core.transactions import (FilteredTransaction,
+                                                   WireTransaction)
+    from corda_tpu_torch.samples.rates_oracle import Fix, FixOf
+    from corda_tpu_torch.testing.dummy import DummyContract, DummyState
+    rng = np.random.default_rng(11)
+    alice, rates, notary_key = (PublicKey(EDDSA_ED25519_SHA512,
+                                          ecmath.ed25519_public_key(
+                                              rng.bytes(32)))
+                                for _ in range(3))
+    notary = Party("O=Notary Service, L=Zurich, C=CH", notary_key)
+    ftxs, want = [], []
+    for i in range(n):
+        wtx = WireTransaction(
+            outputs=(TransactionState(DummyState(i, (alice,)), notary),),
+            commands=(Command(DummyContract.Create(), (alice,)),
+                      Command(Fix(FixOf("ICE LIBOR", "2016-03-16", "3M"),
+                                  500 + i), (rates,))),
+            notary=notary, must_sign=(alice, rates))
+        ftx = wtx.build_filtered_transaction(
+            lambda c: isinstance(c, Command) and isinstance(c.value, Fix))
+        if i % 4 == 1:
+            ftx = FilteredTransaction(SecureHash.sha256(b"wrong"),
+                                      ftx.filtered_leaves,
+                                      ftx.partial_merkle_tree)
+        ftxs.append(ftx)
+        want.append(i % 4 != 1)
+    return ftxs, want
+
+
+def test_b6_batch_merkle_on_the_card_matches_the_host_route(cuda):
+    from corda_tpu_torch.core.transactions import batch_merkle as bm
+    from corda_tpu_torch.ops import sha256 as sha
+    ftxs, want = _port_tear_offs(40)
+    before = sha.hash_pairs.launches
+    got = bm.verify_filtered_batch(ftxs, device_crossover=1, device=cuda)
+    assert sha.hash_pairs.launches == before + 3       # one per round
+    assert got == bm.verify_filtered_batch(ftxs, use_device=False) == want
+    lists = [f.filtered_leaves.available_component_hashes * 5 for f in ftxs]
+    before = sha.merkle_root.launches
+    roots = bm.batch_roots(lists, device_crossover=1, device=cuda)
+    assert sha.merkle_root.launches == before + 3      # 5 leaves -> 8
+    assert roots == bm.batch_roots(lists, use_device=False)
+
+
+def test_b6_raises_kernel_error_when_its_library_cannot_build(
+        cuda, tmp_path, monkeypatch):
+    """A B6 library that cannot be built raises KernelError on the card —
+    nothing falls back to the plain version or to hashlib."""
+    from corda_tpu_torch import _build
+    from corda_tpu_torch.core.transactions import batch_merkle as bm
+    from corda_tpu_torch.ops import sha256 as sha
+    monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path))
+    monkeypatch.setattr(_build, "_LIBS", {})
+    monkeypatch.setitem(_build._TARGETS["sha256"], "compiler", lambda: None)
+    sha.load_kernel.cache_clear()
+    try:
+        t = torch.zeros(4, 16, dtype=torch.int32, device=cuda)
+        with pytest.raises(_build.KernelError, match="no compiler"):
+            sha.hash_pairs(t)
+        ftxs, _ = _port_tear_offs(4)
+        with pytest.raises(_build.KernelError):
+            bm.verify_filtered_batch(ftxs, device_crossover=1, device=cuda)
+    finally:
+        sha.load_kernel.cache_clear()

@@ -2,15 +2,16 @@
 """Smoke run of corda_tpu_torch on one NVIDIA GPU: builds every kernel of the
 port from the sources in this checkout, holds each against its plain PyTorch
 version, and drives the signature-verification service paths end to end —
-Ed25519 and ECDSA (secp256k1, secp256r1) — and the Merkle hashing path
-(bulk tear-off proof checks and bulk transaction ids).
+Ed25519 and ECDSA (secp256k1, secp256r1) —, every ECDSA verify mode of
+``verify_batch`` and the Merkle hashing path (bulk tear-off proof checks and
+bulk transaction ids).
 
     python3 chip_smoke.py [--seed N]
 
 Phases (any failure exits non-zero; nothing is caught):
 
 1. probe   — card name and power limit (nvidia-smi), torch/CUDA versions,
-             parallel build of the four CUDA kernel libraries and
+             parallel build of the seven CUDA kernel libraries and
              libscalarmath (seconds, and nvcc's register/spill report); the
              native scalar prep must be in use.
 2. kernels — each kernel against its plain PyTorch version on the card at
@@ -18,7 +19,9 @@ Phases (any failure exits non-zero; nothing is caught):
              B2 Ed25519 split-k, B3 secp256k1 hybrid GLV and B4 secp256r1
              half-gcd split, on adversarial batches from the smoke's own
              signing (B3's with crafted r + n < p signatures, B4's with
-             half-gcd fallbacks). Verdicts bit-identical and equal to the
+             half-gcd fallbacks), and on the same batches B5 windowed
+             (secp256k1, secp256r1), B8 Shamir (secp256k1, secp256r1) and
+             B8 GLV (secp256k1). Verdicts bit-identical and equal to the
              construction; CUDA-event medians of both versions, and the
              card's least time for the same work. Then B6 (SHA-256/Merkle):
              hash_pairs at 2^10, 2^14, 2^17 and 2^20 pairs, merkle_root on
@@ -26,7 +29,17 @@ Phases (any failure exits non-zero; nothing is caught):
              leaves, sha256_blocks on 65,536 messages of 1 and of 4 blocks:
              bit-identical to the plain versions, a random 256 lanes equal
              to hashlib.
-3. merkle  — the Merkle path at the default DEVICE_CROSSOVER (2^17):
+3. modes   — weierstrass.verify_batch for every (curve, mode) on 32768
+             items (1/16 tampered): secp256k1 hybrid, windowed, plain and
+             glv, secp256r1 halfgcd, windowed and plain. One warm-up pass,
+             two timed passes in turns (secp256r1: halfgcd, windowed,
+             windowed, halfgcd); verdicts equal to the construction and
+             exactly the mode's kernel launched in every run (counts set to
+             0 just before, read just after); verifies/s, prep seconds and
+             kernel ms per pair, secp256r1 windowed against halfgcd side by
+             side, each of those two once more under torch.profiler for the
+             card's idle share.
+4. merkle  — the Merkle path at the default DEVICE_CROSSOVER (2^17):
              verify_filtered_batch over 131,072 oracle-shaped tear-offs
              (4,096 distinct seeded transactions tiled x32, 1/16 tampered)
              and batch_roots over 131,072 component-hash lists (oracle- and
@@ -39,7 +52,7 @@ Phases (any failure exits non-zero; nothing is caught):
              torch.profiler for the card's idle share; one round is timed
              on both routes at 2^8..2^17 pairs for the H100's own
              host/device crossover.
-4. service — SignatureBatcher(device="cuda") driven through submit_group:
+5. service — SignatureBatcher(device="cuda") driven through submit_group:
              Ed25519 (bulk groups of 32768, 1024-item interactive groups,
              single submits), then secp256k1 and secp256r1 (bulk groups of
              32768 and interactive 1024 groups each), then a mixed
@@ -49,9 +62,10 @@ Phases (any failure exits non-zero; nothing is caught):
              construction and a random 256 per scheme the host oracle; no
              batch may fail over to the host, every breaker stays closed,
              and each path's kernels must have launched (counts set to 0
-             just before each path and read just after; the kernels line gives each kernel's count on
-             its own scheme's path, the mixed run's are printed with the
-             ECDSA results). Each path's bulk groups then run once more
+             just before each path and read just after; the kernels line
+             gives each kernel's count on its own scheme's path — B5/B8 on
+             the modes phase —, the mixed run's are printed with the ECDSA
+             results). Each path's bulk groups then run once more
              under torch.profiler (CORDA_TPU_PROFILE_DIR), whose trace gives
              the card's busy share of that window.
 
@@ -103,6 +117,13 @@ def imad_per_sig(products: int, squarings: int, fold: int) -> int:
 #: B4 (csrc/secp256r1_split.cu): 2044 products, 393 squarings; wire g_idx
 #: 64, q_digits 32, q_x/q_y 64, xd 32 and the verdict, plus each distinct
 #: row gathered from the G and G' tables.
+#: B8 Shamir (csrc/weierstrass_shamir.cu): secp256k1 4622 products, 512
+#: squarings; secp256r1 6160 and 768; wire u1/u2 bit planes 512, q_pts 96,
+#: r_cands 64 and the verdict. B8 GLV (csrc/secp256k1_glv.cu): 2438
+#: products, 256 squarings; wire bits4 512, pts4 384, r_cands 64 and the
+#: verdict. B5 windowed (csrc/weierstrass_windowed.cu): secp256k1 2565 and
+#: 518, secp256r1 3773 and 777; wire g_idx 64, q_digits 64, q_x/q_y 64,
+#: r_limbs 32, rn_ok 1 and the verdict, plus each distinct G-table row.
 KERNELS = {
     "ed25519_split_verify": {
         "imad": imad_per_sig(1303, 766, 8), "wire": 64 + 64 + 192 + 32 + 1,
@@ -118,7 +139,44 @@ KERNELS = {
         "source": "corda_tpu_torch/csrc/secp256r1_split.cu",
         "replaces": "corda_tpu/ops/weierstrass.py:1063",
         "lib": "secp256r1_split"},
+    "secp256k1_windowed_verify": {
+        "imad": imad_per_sig(2565, 518, 8), "wire": 64 + 64 + 64 + 32 + 2,
+        "source": "corda_tpu_torch/csrc/weierstrass_windowed.cu",
+        "replaces": "corda_tpu/ops/weierstrass.py:889",
+        "lib": "weierstrass_windowed", "curve": "secp256k1",
+        "mode": "windowed"},
+    "secp256r1_windowed_verify": {
+        "imad": imad_per_sig(3773, 777, 0), "wire": 64 + 64 + 64 + 32 + 2,
+        "source": "corda_tpu_torch/csrc/weierstrass_windowed.cu",
+        "replaces": "corda_tpu/ops/weierstrass.py:889",
+        "lib": "weierstrass_windowed", "curve": "secp256r1",
+        "mode": "windowed"},
+    "secp256k1_shamir_verify": {
+        "imad": imad_per_sig(4622, 512, 8), "wire": 512 + 96 + 64 + 1,
+        "source": "corda_tpu_torch/csrc/weierstrass_shamir.cu",
+        "replaces": "corda_tpu/ops/weierstrass.py:1435",
+        "lib": "weierstrass_shamir", "curve": "secp256k1", "mode": "plain"},
+    "secp256r1_shamir_verify": {
+        "imad": imad_per_sig(6160, 768, 0), "wire": 512 + 96 + 64 + 1,
+        "source": "corda_tpu_torch/csrc/weierstrass_shamir.cu",
+        "replaces": "corda_tpu/ops/weierstrass.py:1435",
+        "lib": "weierstrass_shamir", "curve": "secp256r1", "mode": "plain"},
+    "secp256k1_glv_verify": {
+        "imad": imad_per_sig(2438, 256, 8), "wire": 512 + 384 + 64 + 1,
+        "source": "corda_tpu_torch/csrc/secp256k1_glv.cu",
+        "replaces": "corda_tpu/ops/weierstrass.py:508",
+        "lib": "secp256k1_glv", "curve": "secp256k1", "mode": "glv"},
 }
+#: The kernels of verify_batch's other modes (B5, B8), by (curve, mode).
+MODE_KERNELS = {(k["curve"], k["mode"]): name
+                for name, k in KERNELS.items() if "mode" in k}
+#: verify_batch's (curve, mode) pairs on the modes phase, the secp256r1
+#: windowed and half-gcd routes side by side.
+MODE_PAIRS = (("secp256k1", "hybrid"), ("secp256k1", "windowed"),
+              ("secp256k1", "plain"), ("secp256k1", "glv"),
+              ("secp256r1", "halfgcd"), ("secp256r1", "windowed"),
+              ("secp256r1", "plain"))
+MODE_BATCH = 32768
 NIELS_TABLE_BYTES = 6 * 65536 * 32
 G_ROW_BYTES = 32 + 32 + 1
 
@@ -129,7 +187,8 @@ BUCKETS = (256, 1024, 4096, 32768)
 #: signing is pure Python, ~0.1 s a signature, spread over a process pool),
 #: 4 bulk groups of 32768 and 10 interactive 1k groups; then 512 mixed
 #: three-signature transactions through verify_signed. 5 timed kernel runs
-#: per bucket (3 of the plain versions, 2 at 32768).
+#: per bucket (2 of the plain versions at 32768, 1 below: a plain call is
+#: launch-bound, 1-4 s at every bucket).
 SIGNERS, MESSAGES = 512, 2048
 BULK_GROUPS, INTERACTIVE_RUNS, SINGLES, RUNS = 8, 25, 20, 5
 EC_SIGNERS, EC_MESSAGES = 64, 256
@@ -408,7 +467,7 @@ def compare_kernel(name, kernel, plain, args, tables, bucket, table_bytes,
                          f"at bucket {bucket}")
     ms = time_cuda(lambda: kernel(*args, *tables), RUNS)
     plain_ms = time_cuda(lambda: plain(*args, *tables),
-                         2 if bucket == 32768 else 3)
+                         2 if bucket == 32768 else 1)
     bms, by = bound_ms(name, bucket, table_bytes)
     err = int(abs(k.astype(int) - p.astype(int)).max())
     row = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
@@ -420,8 +479,9 @@ def compare_kernel(name, kernel, plain, args, tables, bucket, table_bytes,
 
 def ecdsa_kernel_batch(curve, base, bucket: int, seed: int):
     """An adversarial bucket for phase 2: ``base`` tiled with 1/16
-    tampered, plus two crafted r + n < p signatures (one valid) and two
-    tiny-r signatures at fixed places. Returns (items, want)."""
+    tampered, plus two crafted r + n < p signatures (one valid), two
+    tiny-r signatures and two valid signatures under the keys G and -G at
+    fixed places. Returns (items, want)."""
     items, want = tile(base, bucket, seed,
                        lambda it, kind, other: tamper_ecdsa(curve, it, kind,
                                                             other))
@@ -433,7 +493,139 @@ def ecdsa_kernel_batch(curve, base, bucket: int, seed: int):
         pub, msg, _, s = base[pos % len(base)]
         items[pos] = (pub, msg, 1000 + pos, s)
         want[pos] = False
+    from corda_tpu_torch.core.crypto import ecmath
+    for pos, priv in ((11, 1), (bucket - 5, curve.n - 1)):
+        msg = rng.randbytes(36)          # keys G and -G: G + Q = 2G and O
+        items[pos] = (curve.mul(priv, curve.g), msg,
+                      *ecmath.ecdsa_sign(curve, priv, msg))
+        want[pos] = True
     return items, want
+
+
+def kernel_wrapper(wc, name: str):
+    """The wrapper (and launch counter) of an ECDSA kernel of KERNELS."""
+    if name == "secp256k1_hybrid_verify":
+        return wc.verify_core_hybrid_wide
+    if name == "secp256r1_split_verify":
+        return wc.verify_core_r1_split
+    return {"windowed": wc.verify_core_windowed_single,
+            "plain": wc.verify_core,
+            "glv": wc.verify_core_glv}[KERNELS[name]["mode"]]
+
+
+def mode_kernel_case(wc, curve, mode: str, items, dev):
+    """Phase 2 inputs of a B5/B8 kernel: (dispatcher, plain version, device
+    wire tensors, trailing arguments (tables, curve name), G-table bytes,
+    precheck)."""
+    import numpy as np
+    if mode == "plain":
+        *wire, precheck = wc.prepare_batch(curve, items)
+        fns, tail, tbytes = (wc.verify_core, wc.verify_core_plain), (
+            curve.name,), 0
+    elif mode == "glv":
+        *wire, precheck = wc.prepare_batch_glv(items)
+        fns, tail, tbytes = (wc.verify_core_glv,
+                             wc.verify_core_glv_plain), (), 0
+    else:
+        *wire, precheck = wc.prepare_batch_windowed_single(curve, items)
+        fns = (wc.verify_core_windowed_single,
+               wc.verify_core_windowed_single_plain)
+        tail = (*wc.windowed_tables(curve, dev), curve.name)
+        tbytes = np.unique(wire[0] & 0xFFFF).size * G_ROW_BYTES
+    return (*fns, wc.wire_to_device(wire, dev), tail, tbytes, precheck)
+
+
+def modes_phase(wc, dev, ec_base, seed: int, card, per_kernel) -> tuple:
+    """Phase 5: verify_batch (the items entry point) for every (curve,
+    mode) of MODE_PAIRS on MODE_BATCH items (1/16 tampered) on the card.
+    One warm-up pass, then two timed passes in turns (MODE_PAIRS, then
+    reversed: the secp256r1 routes run halfgcd, windowed, windowed,
+    halfgcd); every run's verdicts must equal the construction and exactly
+    the mode's kernel must have launched (counts set to 0 just before the
+    run and read just after). The prep alone is timed once more, and the
+    two secp256r1 routes run once more under torch.profiler for the card's
+    idle share. Returns (results, launches by kernel name)."""
+    import numpy as np
+    data = {}
+    for k, name in enumerate(("secp256k1", "secp256r1")):
+        curve = _curve(name)
+
+        def tamper_fn(it, kind, other, curve=curve):
+            return tamper_ecdsa(curve, it, kind, other)
+        data[name] = tile(ec_base[name], MODE_BATCH, seed + k, tamper_fn)
+    kernel_of = {("secp256k1", "hybrid"): "secp256k1_hybrid_verify",
+                 ("secp256r1", "halfgcd"): "secp256r1_split_verify",
+                 **MODE_KERNELS}
+    wrappers = {n: kernel_wrapper(wc, n) for n in kernel_of.values()}
+
+    def run(curve_name: str, mode: str) -> tuple[float, int]:
+        items, want = data[curve_name]
+        for fn in wrappers.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        got = wc.verify_batch(_curve(curve_name), items, mode=mode,
+                              device=dev)
+        wall = time.perf_counter() - t0
+        counts = {n: fn.launches for n, fn in wrappers.items()}
+        if list(got) != want:
+            raise SystemExit(f"verify_batch {curve_name} {mode}: verdicts "
+                             "disagree with the construction")
+        mine = kernel_of[(curve_name, mode)]
+        others = {n: c for n, c in counts.items()
+                  if c and wrappers[n] is not wrappers[mine]}
+        if counts[mine] == 0 or others:
+            raise SystemExit(f"verify_batch {curve_name} {mode} launched "
+                             f"{counts}, expected only {mine}")
+        return wall, counts[mine]
+
+    for pair in MODE_PAIRS:
+        run(*pair)
+    walls = {pair: [] for pair in MODE_PAIRS}
+    launches = {}
+    for pair in MODE_PAIRS + MODE_PAIRS[::-1]:
+        wall, count = run(*pair)
+        walls[pair].append(wall)
+        name = kernel_of[pair]
+        launches[name] = launches.get(name, 0) + count
+    rows = {}
+    for curve_name, mode in MODE_PAIRS:
+        items, _ = data[curve_name]
+        t0 = time.perf_counter()
+        wc._prepare(_curve(curve_name), mode, items)
+        prep_s = time.perf_counter() - t0
+        kernel = kernel_of[(curve_name, mode)]
+        wall = statistics.median(walls[(curve_name, mode)])
+        kernel_ms = per_kernel[kernel][MODE_BATCH]["ms"]
+        rows[f"{curve_name}.{mode}"] = {
+            "kernel": kernel, "walls_s": walls[(curve_name, mode)],
+            "verifies_per_s": MODE_BATCH / wall, "prep_s": prep_s,
+            "kernel_ms": kernel_ms,
+            "kernel_share_of_wall": kernel_ms / 1e3 / wall}
+    traced = {}
+    for mode in ("halfgcd", "windowed"):
+        got, wall, busy, kernel_s = traced_device_window(
+            lambda mode=mode: wc.verify_batch(_curve("secp256r1"),
+                                              data["secp256r1"][0],
+                                              mode=mode, device=dev))
+        if list(got) != data["secp256r1"][1]:
+            raise SystemExit(f"traced secp256r1 {mode} verdicts disagree "
+                             "with the construction")
+        traced[mode] = {"wall_s": wall, "busy_s": busy, "kernel_s": kernel_s,
+                        "idle_share": 1.0 - busy / wall}
+    win, hg = rows["secp256r1.windowed"], rows["secp256r1.halfgcd"]
+    out = {"card": card, "items": MODE_BATCH,
+           "tampered": data["secp256k1"][1].count(False), "modes": rows,
+           "r1_windowed_vs_halfgcd": {
+               "windowed_verifies_per_s": win["verifies_per_s"],
+               "halfgcd_verifies_per_s": hg["verifies_per_s"],
+               "windowed_over_halfgcd": (win["verifies_per_s"]
+                                         / hg["verifies_per_s"]),
+               "windowed_prep_s": win["prep_s"],
+               "halfgcd_prep_s": hg["prep_s"],
+               "windowed_kernel_ms": win["kernel_ms"],
+               "halfgcd_kernel_ms": hg["kernel_ms"],
+               "traced": traced}}
+    return out, {n: c for n, c in launches.items() if n in MODE_KERNELS.values()}
 
 
 def traced_window(batcher_factory, groups, want):
@@ -690,7 +882,7 @@ def traced_device_window(fn):
             wall = time.perf_counter() - t0
         finally:
             prof.stop()
-        trace = os.path.join(prof_dir, "merkle.json")
+        trace = os.path.join(prof_dir, "window.json")
         prof.export_chrome_trace(trace)
         busy_s, kernel_s = device_busy_s(trace)
         if kernel_s == 0.0:
@@ -886,7 +1078,8 @@ def main() -> int:
     _build.build_all()
     log(f"build: {time.perf_counter() - t0:.3f} s wall, per library "
         f"{json.dumps(_build.BUILD_SECONDS)}")
-    for lib in [k["lib"] for k in KERNELS.values()] + ["sha256"]:
+    for lib in dict.fromkeys([k["lib"] for k in KERNELS.values()]
+                             + ["sha256"]):
         for line in _build.BUILD_LOG.get(lib, "").splitlines():
             if "registers" in line or "spill" in line or "stack frame" in line:
                 log(f"ptxas {lib}: {line.strip()}")
@@ -917,6 +1110,7 @@ def main() -> int:
     tables = ed.split_tables(dev)
     k1_tables = wc.hybrid_tables(dev)
     r1_tables = wc.r1_split_tables(dev)
+    wc.windowed_tables(ecmath.SECP256K1, dev)     # B5's 2^16-row k1 table
 
     t_phase = log_phase("probe, build and datasets", t_phase)
 
@@ -934,6 +1128,7 @@ def main() -> int:
         curve = ecmath.SECP256K1
         items, want = ecdsa_kernel_batch(curve, ec_base["secp256k1"], bucket,
                                          args.seed + 3 * bucket)
+        batches = {"secp256k1": (items, want)}
         *wire, precheck = wc.prepare_batch_hybrid_wide(items)
         rows = np.unique(wire[0] & ((1 << 18) - 1)).size
         per_kernel["secp256k1_hybrid_verify"][bucket] = compare_kernel(
@@ -954,6 +1149,19 @@ def main() -> int:
             wc.wire_to_device(wire, dev), r1_tables, bucket,
             rows * G_ROW_BYTES, lambda k: (k & precheck) | forced, want,
             card)
+        batches["secp256r1"] = (items, want)
+
+        # B5 and B8 on the same adversarial buckets as B3 (k1) and B4 (r1)
+        for name, meta in KERNELS.items():
+            if "mode" not in meta:
+                continue
+            curve = _curve(meta["curve"])
+            items, want = batches[meta["curve"]]
+            (kernel, plain, dargs, tail, tbytes,
+             precheck) = mode_kernel_case(wc, curve, meta["mode"], items, dev)
+            per_kernel[name][bucket] = compare_kernel(
+                name, kernel, plain, dargs, tail, bucket, tbytes,
+                lambda k, pre=precheck: k & pre, want, card)
     log("library_ms: null — no PyTorch call computes Ed25519 or ECDSA "
         "verification")
     b6_rows = b6_kernel_phase(dev, card, args.seed + 23)
@@ -963,12 +1171,18 @@ def main() -> int:
         "too), so it is not in the kernels line")
     t_phase = log_phase("kernels", t_phase)
 
-    # -- phase 3: the Merkle path --------------------------------------------
+    # -- phase 3: every verify_batch mode ------------------------------------
+    modes, mode_launches = modes_phase(wc, dev, ec_base, args.seed + 31,
+                                       card, per_kernel)
+    log(json.dumps({"path": "verify_batch_modes", **modes}))
+    t_phase = log_phase("modes", t_phase)
+
+    # -- phase 4: the Merkle path --------------------------------------------
     merkle, b6_launches = merkle_phase(dev, card, args.seed + 29)
     log(json.dumps({"path": "merkle", **merkle}))
     t_phase = log_phase("merkle", t_phase)
 
-    # -- phase 4: the service paths ------------------------------------------
+    # -- phase 5: the service paths ------------------------------------------
     from corda_tpu_torch.core.crypto import Crypto, PublicKey
     from corda_tpu_torch.core.crypto.schemes import (ECDSA_SECP256K1_SHA256,
                                                      ECDSA_SECP256R1_SHA256,
@@ -1254,9 +1468,11 @@ def main() -> int:
     log(json.dumps({"path": "ecdsa", **ec_service}))
     log_phase("service", t_phase)
 
+
     launches = {"ed25519_split_verify": ed_launches,
                 "secp256k1_hybrid_verify": k1_launches,
-                "secp256r1_split_verify": r1_launches, **b6_launches}
+                "secp256r1_split_verify": r1_launches, **b6_launches,
+                **mode_launches}
     rows = []
     for name, meta in KERNELS.items():
         top = per_kernel[name][32768]

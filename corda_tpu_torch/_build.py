@@ -1,16 +1,23 @@
 """Builds the port's native libraries from the repository's sources.
 
-Five shared libraries, all with a plain C interface loaded through ctypes:
+Eight shared libraries, all with a plain C interface loaded through ctypes:
 
 - ``scalarmath``       — ``native/scalarmath.cpp`` (host scalar prep), by g++;
 - ``ed25519_split``    — ``csrc/ed25519_split.cu`` (kernel B2, Ed25519
   split-k verify),
 - ``secp256k1_hybrid`` — ``csrc/secp256k1_hybrid.cu`` (kernel B3, secp256k1
-  hybrid-GLV verify) and
+  hybrid-GLV verify),
 - ``secp256r1_split``  — ``csrc/secp256r1_split.cu`` (kernel B4, secp256r1
-  half-gcd split verify) and
+  half-gcd split verify),
 - ``sha256``           — ``csrc/sha256.cu`` (kernel B6, batched SHA-256 and
-  Merkle levels), each by nvcc for ``sm_90a``.
+  Merkle levels),
+- ``weierstrass_shamir`` — ``csrc/weierstrass_shamir.cu`` (kernel B8, the
+  Shamir ladder, secp256k1 and secp256r1),
+- ``secp256k1_glv``    — ``csrc/secp256k1_glv.cu`` (kernel B8, the GLV
+  joint ladder) and
+- ``weierstrass_windowed`` — ``csrc/weierstrass_windowed.cu`` (kernel B5,
+  the single-scalar windowed ladder, secp256k1 and secp256r1), each by nvcc
+  for ``sm_90a``.
 
 Each is built at first use into ``corda_tpu_torch/_build/`` (listed in
 ``.gitignore``) under a name that carries a hash of its sources and flags, so
@@ -74,6 +81,10 @@ def _cxx() -> str | None:
     return os.environ.get("CXX") or shutil.which("g++") or shutil.which("c++")
 
 
+#: The field and curve headers of the two-curve ECDSA kernels.
+_CURVE_HEADERS = ("field_k1.cuh", "curve_k1.cuh", "field_p256.cuh",
+                  "curve_p256.cuh")
+
 _TARGETS = {
     "scalarmath": {
         "sources": [os.path.join(_REPO, "native", "scalarmath.cpp")],
@@ -89,13 +100,34 @@ _TARGETS = {
     },
     "secp256k1_hybrid": {
         "sources": [os.path.join(CSRC, "secp256k1_hybrid.cu")],
-        "deps": [os.path.join(CSRC, "field_k1.cuh")],
+        "deps": [os.path.join(CSRC, h) for h in ("field_k1.cuh",
+                                                  "curve_k1.cuh")],
         "flags": _NVCC_FLAGS,
         "compiler": nvcc_path,
     },
     "secp256r1_split": {
         "sources": [os.path.join(CSRC, "secp256r1_split.cu")],
-        "deps": [os.path.join(CSRC, "field_p256.cuh")],
+        "deps": [os.path.join(CSRC, h) for h in ("field_p256.cuh",
+                                                  "curve_p256.cuh")],
+        "flags": _NVCC_FLAGS,
+        "compiler": nvcc_path,
+    },
+    "weierstrass_shamir": {
+        "sources": [os.path.join(CSRC, "weierstrass_shamir.cu")],
+        "deps": [os.path.join(CSRC, h) for h in _CURVE_HEADERS],
+        "flags": _NVCC_FLAGS,
+        "compiler": nvcc_path,
+    },
+    "secp256k1_glv": {
+        "sources": [os.path.join(CSRC, "secp256k1_glv.cu")],
+        "deps": [os.path.join(CSRC, h) for h in ("field_k1.cuh",
+                                                  "curve_k1.cuh")],
+        "flags": _NVCC_FLAGS,
+        "compiler": nvcc_path,
+    },
+    "weierstrass_windowed": {
+        "sources": [os.path.join(CSRC, "weierstrass_windowed.cu")],
+        "deps": [os.path.join(CSRC, h) for h in _CURVE_HEADERS],
         "flags": _NVCC_FLAGS,
         "compiler": nvcc_path,
     },

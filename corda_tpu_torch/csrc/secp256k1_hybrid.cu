@@ -12,7 +12,8 @@
 // Design: one thread per signature; the field is csrc/field_k1.cuh (8 x
 // 32-bit words, 64 32x32->64 multiply-adds a product). Points are projective
 // (X:Y:Z) with the complete a = 0 formulas of Renes-Costello-Batina 2016
-// (Algorithms 7, 8 and 9, b3 = 21), so there are no data-dependent branches;
+// (Algorithms 7, 8 and 9, b3 = 21; csrc/curve_k1.cuh, shared with B5 and
+// B8), so there are no data-dependent branches;
 // the peeled first step may select T[0], the identity (0:1:0), which the
 // complete formulas take as they take any point. The mixed addition is not
 // valid for an identity addend, so the table's identity rows (flag 0) keep
@@ -32,136 +33,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "field_k1.cuh"
-
-struct k1pt {
-  k1fe X, Y, Z;
-};
-
-#define K1_B3 21u  // 3 * b, b = 7
-
-__device__ __forceinline__ void k1pt_identity(k1pt &o) {
-  k1_zero(o.X);
-  k1_one(o.Y);
-  k1_zero(o.Z);
-}
-
-// Complete addition, a = 0 (RCB16 Algorithm 7): 12 products.
-__device__ __noinline__ void k1pt_add(k1pt &o, const k1pt &p, const k1pt &q) {
-  k1fe t0, t1, t2, t3, t4, x3, y3, z3;
-  k1_mul(t0, p.X, q.X);
-  k1_mul(t1, p.Y, q.Y);
-  k1_mul(t2, p.Z, q.Z);
-  k1_add(t3, p.X, p.Y);
-  k1_add(t4, q.X, q.Y);
-  k1_mul(t3, t3, t4);
-  k1_add(t4, t0, t1);
-  k1_sub(t3, t3, t4);
-  k1_add(t4, p.Y, p.Z);
-  k1_add(x3, q.Y, q.Z);
-  k1_mul(t4, t4, x3);
-  k1_add(x3, t1, t2);
-  k1_sub(t4, t4, x3);
-  k1_add(x3, p.X, p.Z);
-  k1_add(y3, q.X, q.Z);
-  k1_mul(x3, x3, y3);
-  k1_add(y3, t0, t2);
-  k1_sub(y3, x3, y3);
-  k1_add(x3, t0, t0);
-  k1_add(t0, x3, t0);
-  k1_mul_small(t2, t2, K1_B3);
-  k1_add(z3, t1, t2);
-  k1_sub(t1, t1, t2);
-  k1_mul_small(y3, y3, K1_B3);
-  k1_mul(x3, t4, y3);
-  k1_mul(t2, t3, t1);
-  k1_sub(o.X, t2, x3);
-  k1_mul(y3, y3, t0);
-  k1_mul(t1, t1, z3);
-  k1_add(o.Y, t1, y3);
-  k1_mul(t0, t0, t3);
-  k1_mul(z3, z3, t4);
-  k1_add(o.Z, z3, t0);
-}
-
-// Mixed addition of an affine point (x2, y2), Z2 = 1, a = 0 (RCB16
-// Algorithm 8): 11 products. Complete for every projective p; not valid for
-// an identity addend.
-__device__ __noinline__ void k1pt_madd(k1pt &o, const k1pt &p, const k1fe &x2,
-                                       const k1fe &y2) {
-  k1fe t0, t1, t2, t3, t4, x3, y3, z3;
-  k1_mul(t0, p.X, x2);
-  k1_mul(t1, p.Y, y2);
-  k1_add(t3, x2, y2);
-  k1_add(t4, p.X, p.Y);
-  k1_mul(t3, t3, t4);
-  k1_add(t4, t0, t1);
-  k1_sub(t3, t3, t4);
-  k1_mul(t4, y2, p.Z);
-  k1_add(t4, t4, p.Y);
-  k1_mul(y3, x2, p.Z);
-  k1_add(y3, y3, p.X);
-  k1_add(x3, t0, t0);
-  k1_add(t0, x3, t0);
-  k1_mul_small(t2, p.Z, K1_B3);
-  k1_add(z3, t1, t2);
-  k1_sub(t1, t1, t2);
-  k1_mul_small(y3, y3, K1_B3);
-  k1_mul(x3, t4, y3);
-  k1_mul(t2, t3, t1);
-  k1_sub(o.X, t2, x3);
-  k1_mul(y3, y3, t0);
-  k1_mul(t1, t1, z3);
-  k1_add(o.Y, t1, y3);
-  k1_mul(t0, t0, t3);
-  k1_mul(z3, z3, t4);
-  k1_add(o.Z, z3, t0);
-}
-
-// Complete doubling, a = 0 (RCB16 Algorithm 9): 6 products, 2 squarings.
-__device__ __noinline__ void k1pt_dbl(k1pt &o, const k1pt &p) {
-  k1fe t0, t1, t2, x3, y3, z3;
-  k1_sqr(t0, p.Y);
-  k1_add(z3, t0, t0);
-  k1_add(z3, z3, z3);
-  k1_add(z3, z3, z3);
-  k1_mul(t1, p.Y, p.Z);
-  k1_sqr(t2, p.Z);
-  k1_mul_small(t2, t2, K1_B3);
-  k1_mul(x3, t2, z3);
-  k1_add(y3, t0, t2);
-  k1_mul(z3, t1, z3);
-  k1_add(t1, t2, t2);
-  k1_add(t2, t1, t2);
-  k1_sub(t0, t0, t2);
-  k1_mul(y3, t0, y3);
-  k1_add(y3, x3, y3);
-  k1_mul(t1, p.X, p.Y);
-  k1_mul(x3, t0, t1);
-  k1_add(o.X, x3, x3);
-  o.Y = y3;
-  o.Z = z3;
-}
-
-__device__ __forceinline__ void k1_load16(k1fe &o, const uint16_t *src) {
-  const uint4 *s = reinterpret_cast<const uint4 *>(src);
-  uint4 lo = __ldg(s), hi = __ldg(s + 1);
-  o.v[0] = lo.x; o.v[1] = lo.y; o.v[2] = lo.z; o.v[3] = lo.w;
-  o.v[4] = hi.x; o.v[5] = hi.y; o.v[6] = hi.z; o.v[7] = hi.w;
-}
-
-// Mixed-adds the affine G-table row ``row`` into acc; identity rows
-// (flag 0) leave acc as it was.
-__device__ __forceinline__ void k1_g_add(k1pt &acc, const uint16_t *tab_x,
-                                         const uint16_t *tab_y,
-                                         const uint8_t *tab_ok, int32_t row) {
-  k1fe x2, y2;
-  k1_load16(x2, tab_x + (int64_t)row * 16);
-  k1_load16(y2, tab_y + (int64_t)row * 16);
-  k1pt sum;
-  k1pt_madd(sum, acc, x2, y2);
-  if (__ldg(tab_ok + row)) acc = sum;
-}
+#include "curve_k1.cuh"
 
 // One thread per item. Wire layout (the JAX kernel's, unchanged):
 //   g_idx   (16, n) i32: G-table index of outer step s (18 bits); row 0

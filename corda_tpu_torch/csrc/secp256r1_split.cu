@@ -10,7 +10,8 @@
 // Design: one thread per signature; the field is csrc/field_p256.cuh (8 x
 // 32-bit words, FIPS 186-4 fast reduction). Points are projective (X:Y:Z)
 // with the complete a = -3 formulas of Renes-Costello-Batina 2016
-// (Algorithms 4, 5 and 6), so there are no data-dependent branches; the
+// (Algorithms 4, 5 and 6; csrc/curve_p256.cuh, shared with B5 and B8), so
+// there are no data-dependent branches; the
 // peeled first step may select T[0], the identity (0:1:0). Per outer step
 // (8 of them): 4 x (4 doublings + 1 Q add from the 16-entry per-item table
 // {0..15}Q in local memory, 1.5 KB a thread), then a mixed add from the G'
@@ -28,179 +29,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "field_p256.cuh"
-
-struct r1pt {
-  p256fe X, Y, Z;
-};
-
-__device__ __forceinline__ void r1pt_identity(r1pt &o) {
-  p256_zero(o.X);
-  p256_one(o.Y);
-  p256_zero(o.Z);
-}
-
-__device__ __forceinline__ void p256_b(p256fe &o) {
-#pragma unroll
-  for (int i = 0; i < 8; ++i) o.v[i] = P256_B[i];
-}
-
-// Complete addition, a = -3 (RCB16 Algorithm 4): 12 products + 2 by b.
-__device__ __noinline__ void r1pt_add(r1pt &o, const r1pt &p, const r1pt &q) {
-  p256fe t0, t1, t2, t3, t4, x3, y3, z3, b;
-  p256_b(b);
-  p256_mul(t0, p.X, q.X);
-  p256_mul(t1, p.Y, q.Y);
-  p256_mul(t2, p.Z, q.Z);
-  p256_add(t3, p.X, p.Y);
-  p256_add(t4, q.X, q.Y);
-  p256_mul(t3, t3, t4);
-  p256_add(t4, t0, t1);
-  p256_sub(t3, t3, t4);
-  p256_add(t4, p.Y, p.Z);
-  p256_add(x3, q.Y, q.Z);
-  p256_mul(t4, t4, x3);
-  p256_add(x3, t1, t2);
-  p256_sub(t4, t4, x3);
-  p256_add(x3, p.X, p.Z);
-  p256_add(y3, q.X, q.Z);
-  p256_mul(x3, x3, y3);
-  p256_add(y3, t0, t2);
-  p256_sub(y3, x3, y3);
-  p256_mul(z3, b, t2);
-  p256_sub(x3, y3, z3);
-  p256_add(z3, x3, x3);
-  p256_add(x3, x3, z3);
-  p256_sub(z3, t1, x3);
-  p256_add(x3, t1, x3);
-  p256_mul(y3, b, y3);
-  p256_add(t1, t2, t2);
-  p256_add(t2, t1, t2);
-  p256_sub(y3, y3, t2);
-  p256_sub(y3, y3, t0);
-  p256_add(t1, y3, y3);
-  p256_add(y3, t1, y3);
-  p256_add(t1, t0, t0);
-  p256_add(t0, t1, t0);
-  p256_sub(t0, t0, t2);
-  p256_mul(t1, t4, y3);
-  p256_mul(t2, t0, y3);
-  p256_mul(y3, x3, z3);
-  p256_add(o.Y, y3, t2);
-  p256_mul(x3, t3, x3);
-  p256_sub(o.X, x3, t1);
-  p256_mul(z3, t4, z3);
-  p256_mul(t1, t3, t0);
-  p256_add(o.Z, z3, t1);
-}
-
-// Mixed addition of an affine point (x2, y2), Z2 = 1, a = -3 (RCB16
-// Algorithm 5): 11 products + 2 by b. Complete for every projective p; not
-// valid for an identity addend.
-__device__ __noinline__ void r1pt_madd(r1pt &o, const r1pt &p,
-                                       const p256fe &x2, const p256fe &y2) {
-  p256fe t0, t1, t2, t3, t4, x3, y3, z3, b;
-  p256_b(b);
-  p256_mul(t0, p.X, x2);
-  p256_mul(t1, p.Y, y2);
-  p256_add(t3, x2, y2);
-  p256_add(t4, p.X, p.Y);
-  p256_mul(t3, t3, t4);
-  p256_add(t4, t0, t1);
-  p256_sub(t3, t3, t4);
-  p256_mul(t4, y2, p.Z);
-  p256_add(t4, t4, p.Y);
-  p256_mul(y3, x2, p.Z);
-  p256_add(y3, y3, p.X);
-  p256_mul(z3, b, p.Z);
-  p256_sub(x3, y3, z3);
-  p256_add(z3, x3, x3);
-  p256_add(x3, x3, z3);
-  p256_sub(z3, t1, x3);
-  p256_add(x3, t1, x3);
-  p256_mul(y3, b, y3);
-  p256_add(t1, p.Z, p.Z);
-  p256_add(t2, t1, p.Z);
-  p256_sub(y3, y3, t2);
-  p256_sub(y3, y3, t0);
-  p256_add(t1, y3, y3);
-  p256_add(y3, t1, y3);
-  p256_add(t1, t0, t0);
-  p256_add(t0, t1, t0);
-  p256_sub(t0, t0, t2);
-  p256_mul(t1, t4, y3);
-  p256_mul(t2, t0, y3);
-  p256_mul(y3, x3, z3);
-  p256_add(o.Y, y3, t2);
-  p256_mul(x3, t3, x3);
-  p256_sub(o.X, x3, t1);
-  p256_mul(z3, t4, z3);
-  p256_mul(t1, t3, t0);
-  p256_add(o.Z, z3, t1);
-}
-
-// Complete doubling, a = -3 (RCB16 Algorithm 6): 8 products + 2 by b and 3
-// squarings.
-__device__ __noinline__ void r1pt_dbl(r1pt &o, const r1pt &p) {
-  p256fe t0, t1, t2, t3, x3, y3, z3, b;
-  p256_b(b);
-  p256_sqr(t0, p.X);
-  p256_sqr(t1, p.Y);
-  p256_sqr(t2, p.Z);
-  p256_mul(t3, p.X, p.Y);
-  p256_add(t3, t3, t3);
-  p256_mul(z3, p.X, p.Z);
-  p256_add(z3, z3, z3);
-  p256_mul(y3, b, t2);
-  p256_sub(y3, y3, z3);
-  p256_add(x3, y3, y3);
-  p256_add(y3, x3, y3);
-  p256_sub(x3, t1, y3);
-  p256_add(y3, t1, y3);
-  p256_mul(y3, x3, y3);
-  p256_mul(x3, x3, t3);
-  p256_add(t3, t2, t2);
-  p256_add(t2, t2, t3);
-  p256_mul(z3, b, z3);
-  p256_sub(z3, z3, t2);
-  p256_sub(z3, z3, t0);
-  p256_add(t3, z3, z3);
-  p256_add(z3, z3, t3);
-  p256_add(t3, t0, t0);
-  p256_add(t0, t3, t0);
-  p256_sub(t0, t0, t2);
-  p256_mul(t0, t0, z3);
-  p256_add(y3, y3, t0);
-  p256_mul(t0, p.Y, p.Z);
-  p256_add(t0, t0, t0);
-  p256_mul(z3, t0, z3);
-  p256_sub(o.X, x3, z3);
-  p256_mul(z3, t0, t1);
-  p256_add(z3, z3, z3);
-  p256_add(o.Z, z3, z3);
-  o.Y = y3;
-}
-
-__device__ __forceinline__ void p256_load16(p256fe &o, const uint16_t *src) {
-  const uint4 *s = reinterpret_cast<const uint4 *>(src);
-  uint4 lo = __ldg(s), hi = __ldg(s + 1);
-  o.v[0] = lo.x; o.v[1] = lo.y; o.v[2] = lo.z; o.v[3] = lo.w;
-  o.v[4] = hi.x; o.v[5] = hi.y; o.v[6] = hi.z; o.v[7] = hi.w;
-}
-
-// Mixed-adds the affine row ``row`` of one G table into acc; identity rows
-// (flag 0) leave acc as it was.
-__device__ __forceinline__ void r1_g_add(r1pt &acc, const uint16_t *tab_x,
-                                         const uint16_t *tab_y,
-                                         const uint8_t *tab_ok, int32_t row) {
-  row &= 0xFFFF;
-  p256fe x2, y2;
-  p256_load16(x2, tab_x + (int64_t)row * 16);
-  p256_load16(y2, tab_y + (int64_t)row * 16);
-  r1pt sum;
-  r1pt_madd(sum, acc, x2, y2);
-  if (__ldg(tab_ok + row)) acc = sum;
-}
+#include "curve_p256.cuh"
 
 // One thread per item. Wire layout (the JAX kernel's, unchanged):
 //   g_idx    (8, 2, n) i32: [s][0] t_hi window (G' table), [s][1] t_lo

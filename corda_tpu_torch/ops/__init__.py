@@ -9,10 +9,13 @@
 - staging.py    — pinned host staging buffers, released on CUDA events
 - ed25519.py    — the Ed25519 split-k verifier: host prep, the plain
   PyTorch version and the CUDA kernel wrapper (``csrc/ed25519_split.cu``)
-- weierstrass.py — ECDSA over secp256k1 (hybrid GLV, ``csrc/
-  secp256k1_hybrid.cu``) and secp256r1 (half-gcd split,
-  ``csrc/secp256r1_split.cu``): host preps, G tables, plain versions, CUDA
-  kernel wrappers and the batch entry points
+- weierstrass.py — ECDSA over secp256k1 and secp256r1 in every verify
+  mode: hybrid GLV (``csrc/secp256k1_hybrid.cu``), half-gcd split
+  (``csrc/secp256r1_split.cu``), windowed (``csrc/weierstrass_windowed.cu``),
+  Shamir (``csrc/weierstrass_shamir.cu``) and GLV
+  (``csrc/secp256k1_glv.cu``), over the shared point formulas of
+  ``csrc/curve_k1.cuh`` and ``curve_p256.cuh``: host preps, G tables,
+  plain versions, CUDA kernel wrappers and the batch entry points
 
 Importing this package builds nothing and touches no device.
 """

@@ -4,9 +4,11 @@ Port of corda_tpu/ops/scalarprep.py. The C library does the per-item scalar
 layer of the three device verifiers in one pass per batch: Ed25519 split-k
 (``sm_ed_prep``: the SHA-512 challenge mod L, the s < L range check, window
 and joint-digit extraction), secp256k1 hybrid GLV (``sm_k1_prep``: precheck,
-batch s-inversion, GLV split, windows, limb packing) and secp256r1 half-gcd
+batch s-inversion, GLV split, windows, limb packing) secp256r1 half-gcd
 split (``sm_r1_prep_hg``: precheck, batch s-inversion, half-gcd, t split,
-R decompression, the [v2]R ladder). It is built from the repository's
+R decompression, the [v2]R ladder) and secp256r1 single-scalar windows
+(``sm_r1_prep``: precheck, batch s-inversion, u1/u2 and their w = 16 and
+4-bit windows). It is built from the repository's
 ``native/scalarmath.cpp`` with g++ into ``corda_tpu_torch/_build/`` the
 first time it is needed (``_build.load``); ``native/`` itself is untouched.
 
@@ -55,6 +57,11 @@ def _bind(lib) -> None:
         _U8P, _U8P, _U64P]
     lib.sm_r1_prep_hg.restype = ctypes.c_int
     lib.sm_r1_prep_hg.argtypes = [
+        ctypes.c_int64, _U64P, _U64P, _U64P, _U64P,
+        _I32P, _U8P, _U16P, _U16P, _U16P,
+        _U8P, _U8P, _U64P]
+    lib.sm_r1_prep.restype = ctypes.c_int
+    lib.sm_r1_prep.argtypes = [
         ctypes.c_int64, _U64P, _U64P, _U64P, _U64P,
         _I32P, _U8P, _U16P, _U16P, _U16P,
         _U8P, _U8P, _U64P]
@@ -207,6 +214,32 @@ def k1_prep(e_words, r_words, s_words, pub_words):
         raise RuntimeError(f"sm_k1_prep failed: {rc}")
     return (g_idx, q_packed, qc_x, qc_y, qd_x, qd_y, r_limbs,
             rn_ok, precheck.astype(bool))
+
+
+def r1_prep(e_words, r_words, s_words, pub_words):
+    """secp256r1 single-scalar windowed prep (w = 16, 4-bit Q digits).
+    Returns (g_idx (16,B) i32 w = 16 windows of u1; q_digits (64,B) u8
+    4-bit digits of u2; q_x, q_y (B,16) u16 Q; r_limbs (B,16) u16;
+    rn_ok (B,) u8 (r + n < p); precheck (B,) bool), all MSB first."""
+    lib = _native()
+    n = len(e_words)
+    g_idx = np.empty((16, n), dtype=np.int32)
+    q_digits = np.empty((64, n), dtype=np.uint8)
+    q_x, q_y, r_limbs = (np.empty((n, 16), dtype=np.uint16)
+                         for _ in range(3))
+    rn_ok = np.empty(n, dtype=np.uint8)
+    precheck = np.empty(n, dtype=np.uint8)
+    work = np.empty((3 * n, 4), dtype=np.uint64)
+    rc = lib.sm_r1_prep(
+        n, np.ascontiguousarray(e_words, dtype=np.uint64),
+        np.ascontiguousarray(r_words, dtype=np.uint64),
+        np.ascontiguousarray(s_words, dtype=np.uint64),
+        np.ascontiguousarray(pub_words, dtype=np.uint64),
+        g_idx, q_digits, q_x, q_y, r_limbs, rn_ok, precheck, work)
+    if rc != 0:
+        raise RuntimeError(f"sm_r1_prep failed: {rc}")
+    return (g_idx, q_digits, q_x, q_y, r_limbs, rn_ok,
+            precheck.astype(bool))
 
 
 def r1_prep_hg(e_words, r_words, s_words, pub_words):

@@ -1,24 +1,37 @@
-"""Batched ECDSA verification over secp256k1 and secp256r1 (kernels B3, B4).
+"""Batched ECDSA verification over secp256k1 and secp256r1 (kernels B3, B4,
+B5 and B8).
 
-Port of corda_tpu/ops/weierstrass.py: the secp256k1 hybrid-GLV path and the
-secp256r1 half-gcd split path, with their host preps, constant-G tables and
-service entry points. Host/device split:
+Port of corda_tpu/ops/weierstrass.py: every verify mode of the reference,
+with its host prep, constant-G tables and entry points. Host/device split:
 
 - host: structural prechecks (r/s ranges with the low-s rule, on-curve
-  keys), e/w/u1/u2, the GLV split (k1) or the half-gcd split with the
-  [v2]R comparand (r1) — in native ``scalarmath`` (``ops/scalarprep.py``)
-  with bit-identical Python fallbacks — and the affine constant-G tables,
-  built once per process and cached per device;
+  keys), e/w/u1/u2, and per mode the scalar layout — bit planes (plain),
+  GLV splits (glv, hybrid), windows (windowed) or the half-gcd split with
+  the [v2]R comparand (halfgcd) — in native ``scalarmath``
+  (``ops/scalarprep.py``) where the reference has a native prep, with
+  bit-identical Python versions; and the affine constant-G tables, built
+  once per process and cached per device;
 - device: the ladders over projective (X:Y:Z) points with the complete
   formulas of Renes, Costello and Batina (EUROCRYPT 2016) and a projective
   accept X == x·Z.
 
-B3 ``verify_core_hybrid_wide``: [a]G + [b]φ(G) + [c]Qc + [d]Qd over 128-bit
-GLV halves, G legs from a 2^18-row affine table (8-bit digits and signs),
-Q legs from a 16-entry per-item table; accept X == r·Z or, where r + n < p
-(``rn_ok``), X == (r + n)·Z. B4 ``verify_core_r1_split``:
-[t_lo]G + [t_hi]G′ + [|v1|](±Q) with G′ = [2^128]G and every scalar below
-2^128; accept X == x_D·Z with x_D = x([v2]R) from the host.
+The kernels:
+
+- B3 ``verify_core_hybrid_wide`` (secp256k1): [a]G + [b]φ(G) + [c]Qc +
+  [d]Qd over 128-bit GLV halves, G legs from a 2^18-row affine table, Q
+  legs from a 16-entry per-item table; accept X == r·Z or, where r + n < p
+  (``rn_ok``), X == (r + n)·Z.
+- B4 ``verify_core_r1_split`` (secp256r1): [t_lo]G + [t_hi]G′ + [|v1|](±Q)
+  with G′ = [2^128]G and every scalar below 2^128; accept X == x_D·Z with
+  x_D = x([v2]R) from the host.
+- B5 ``verify_core_windowed_single`` (both curves): [u1]G + [u2]Q, u1 in
+  sixteen 16-bit windows over a 2^16-row affine G table, u2 in 4-bit
+  windows over a 16-entry per-item {0..15}Q table; accept as B3.
+- B8 ``verify_core`` (both curves): the 256-bit interleaved Shamir ladder
+  over {O, G, Q, G + Q}; accept X == r·Z or X == r′·Z for the two host
+  candidates r and r′ = r + n (where r + n < p, else r).
+- B8 ``verify_core_glv`` (secp256k1): the 128-bit joint ladder over the
+  16-entry subset sums of ±G, ±φ(G), ±Q, ±φ(Q); accept as B8.
 
 Each kernel has three functions: ``*_plain`` (plain PyTorch, 16-bit limbs in
 int64 lanes, any device), ``*_cuda`` (the hand-written Hopper kernel in
@@ -29,9 +42,8 @@ algorithms as the kernels (the JAX kernels use column-fused variants of the
 same mathematics): projective representatives may differ between the
 packages, verdicts and affine points may not.
 
-``verify_batch`` modes: ``auto``, ``hybrid`` (secp256k1) and ``halfgcd``
-(secp256r1). The JAX package's ``plain``, ``glv`` and ``windowed`` modes
-(kernels B5, B8) are not ported yet and raise ``NotImplementedError``.
+``verify_batch`` modes: ``auto`` (``hybrid`` for secp256k1, ``halfgcd`` for
+secp256r1), ``hybrid``, ``halfgcd``, ``windowed``, ``plain`` and ``glv``.
 """
 from __future__ import annotations
 
@@ -54,6 +66,8 @@ from . import scalarprep as sp
 from .staging import get_staging_pool
 
 CURVES = {"secp256k1": SECP256K1, "secp256r1": SECP256R1}
+#: The curve argument of the two-curve kernels' C launchers.
+_CURVE_IDS = {"secp256k1": 0, "secp256r1": 1}
 
 #: Constant-G window width of the secp256k1 hybrid kernel: the table has
 #: 2^(2w+2) = 2^18 affine rows and 128 = 16 x 8 bits divide exactly
@@ -62,13 +76,16 @@ HYBRID_G_WINDOW = 8
 #: GLV halves are below 2^128 (Babai rounding bounds).
 GLV_BITS = 128
 #: Constant-G window width of the secp256r1 split kernel (two 2^16-row
-#: tables, G and G′ = [2^128]G) and its per-item Q window (4-bit digits over
-#: the 16-entry {0..15}Q table).
+#: tables, G and G′ = [2^128]G) and of the windowed kernel (one 2^16-row G
+#: table a curve), and their per-item Q window (4-bit digits over the
+#: 16-entry {0..15}Q table).
 R1_G_WINDOW = 16
 R1_Q_WINDOW = 4
 
-_NOT_PORTED = ("verify_batch mode {!r} (kernels B5/B8) is not ported to "
-               "corda_tpu_torch yet: see ROADMAP.md A5")
+#: The verify modes of ``verify_batch`` and the curves each accepts (None:
+#: any curve with a = 0 or a = -3).
+MODES = {"hybrid": "secp256k1", "glv": "secp256k1", "halfgcd": "secp256r1",
+         "windowed": None, "plain": None}
 
 
 # ---------------------------------------------------------------------------
@@ -493,6 +510,13 @@ def r1_split_tables(device="cuda") -> tuple:
                                           device))
 
 
+def windowed_tables(curve: WeierstrassCurve, device="cuda") -> tuple:
+    """The three table arguments of the windowed kernel: the 2^16-row
+    single-scalar G table of ``curve`` (for secp256r1 the very tensors of
+    the split kernel's G table, which has the same cache key)."""
+    return g_window_table_single_device(curve, R1_G_WINDOW, 0, device)
+
+
 def _check_tables(tabs, rows: int) -> list:
     tabs = [np.ascontiguousarray(t) for t in tabs]
     for k, t in enumerate(tabs):
@@ -530,6 +554,25 @@ def load_r1_split_tables_from_numpy(tabs, device="cuda") -> tuple:
     hi = F.install_device_tables(("g_single", "secp256r1", R1_G_WINDOW, 128),
                                  tabs[3:], dev)
     return (*lo, *hi)
+
+
+def load_windowed_tables_from_numpy(tabs, device="cuda") -> dict:
+    """Install windowed-kernel G tables built elsewhere: ``tabs`` maps a
+    curve name to three numpy arrays x, y (2^16, 16) u16 and ok (2^16,) u8
+    (e.g. the JAX package's ``_g_window_table_single(curve, 16)``). Returns
+    {curve name: tensors}. The secp256r1 table is also the split kernel's
+    G table."""
+    dev = resolve_device(device)
+    out = {}
+    for name, arrs in tabs.items():
+        if name not in CURVES:
+            raise ValueError(f"unknown curve {name!r}")
+        arrs = _check_tables(arrs, 1 << R1_G_WINDOW)
+        if len(arrs) != 3:
+            raise ValueError("expected three arrays: x, y, ok")
+        out[name] = F.install_device_tables(
+            ("g_single", name, R1_G_WINDOW, 0), arrs, dev)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -629,6 +672,79 @@ def _accept_rn(X, Z, r, rn_ok, p: int, n: int):
     return nonzero & ok_r
 
 
+def _select4(idx, points):
+    """4-way batched point select: ``idx`` (B,) in [0, 4) over four
+    projective triples (idx values outside pick the first)."""
+    c = (idx == 3, idx == 2, idx == 1)
+    return tuple(torch.where(c[0].unsqueeze(-1), c3, torch.where(
+        c[1].unsqueeze(-1), c2, torch.where(c[2].unsqueeze(-1), c1, c0)))
+        for c0, c1, c2, c3 in zip(*points))
+
+
+def shamir_ladder(bits1, bits2, P1, P2, curve: WeierstrassCurve):
+    """[k1]P1 + [k2]P2: the interleaved double-and-add over complete
+    additions, 256 steps of one doubling and one addition of a selected
+    {O, P1, P2, P1 + P2}. ``bits1``, ``bits2``: (nbits, B) int64, MSB
+    first."""
+    P3 = add(P1, P2, curve)
+    Pid = identity(P1[0].shape[:-1], P1[0].device)
+    acc = Pid
+    for b1, b2 in zip(bits1, bits2):
+        acc = add(dbl(acc, curve), _select4(b1 + 2 * b2, (Pid, P1, P2, P3)),
+                  curve)
+    return acc
+
+
+def glv_ladder(bits4, pts4, curve: WeierstrassCurve):
+    """[a]P0 + [b]P1 + [c]P2 + [d]P3 over the (nbits, B, 4) MSB-first bit
+    planes ``bits4``: the 16-entry subset-sum table (11 complete adds), then
+    one doubling and one addition of the selected subset sum a bit."""
+    Pid = identity(pts4[0][0].shape[:-1], pts4[0][0].device)
+    table = [Pid] * 16
+    for t in range(1, 16):
+        low = t & -t                      # lowest set bit
+        rest = t ^ low
+        pt = pts4[low.bit_length() - 1]
+        table[t] = pt if rest == 0 else add(table[rest], pt, curve)
+    acc = Pid
+    for bits in bits4:
+        idx = sum((bits[:, j] != 0).to(torch.int64) << j for j in range(4))
+        acc = add(dbl(acc, curve), select_tree(table, idx), curve)
+    return acc
+
+
+def windowed_ladder_single(g_idx, q_digits, Q, gtab,
+                           curve: WeierstrassCurve):
+    """[u1]G + [u2]Q: per outer step, 4 × (4 doublings + 1 Q add from the
+    16-entry {0..15}Q table), then ONE mixed G add gathered from the
+    2^16-row affine table (flag-0 rows keep the accumulator). The first
+    step is peeled: the accumulator starts at its first Q addend.
+    ``g_idx`` (16, B) int64 (masked), ``q_digits`` (16, 4, B) int64,
+    ``gtab`` int64 (x, y, ok)."""
+    table = _q_table_single(Q, curve)
+    acc = None
+    for s in range(g_idx.shape[0]):
+        for k in range(q_digits.shape[1]):
+            addend = select_tree(table, q_digits[s, k])
+            if acc is None:
+                acc = addend
+            else:
+                for _ in range(4):
+                    acc = dbl(acc, curve)
+                acc = add(acc, addend, curve)
+        acc = _g_add(acc, g_idx[s], gtab, curve)
+    return acc
+
+
+def _accept(X, Z, r_cands, p: int):
+    """ECDSA accept on the projective result with two host candidates:
+    Z ≠ 0 and X ≡ r_cands[0]·Z or X ≡ r_cands[1]·Z."""
+    cx = F.canon(X, p)
+    ok = ((cx == F.canon(F.mul(r_cands[0], Z, p), p)).all(dim=-1)
+          | (cx == F.canon(F.mul(r_cands[1], Z, p), p)).all(dim=-1))
+    return ~F.is_zero(Z, p) & ok
+
+
 def _int64(*ts):
     return tuple(t.to(torch.int64) for t in ts)
 
@@ -653,17 +769,28 @@ def verify_core_hybrid_wide_plain(g_idx, q_bits, pts, r_limbs,
 _LAUNCH_LOCK = threading.Lock()
 
 
+def _bind_kernel(target: str, n_ptrs: int, with_curve: bool = False):
+    """Build (at first use) and bind one of the ECDSA kernel libraries: its
+    C launcher ``<target>_verify`` takes ``n_ptrs`` device pointers, the
+    verdict pointer, n, (the curve id, for the two-curve kernels) and the
+    stream; ``<target>_error_string`` names a CUDA error. Raises
+    :class:`BuildError` when the library cannot be built."""
+    lib = _build.load(target)
+    fn = getattr(lib, f"{target}_verify")
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * (n_ptrs + 1) + [ctypes.c_int64]
+                   + [ctypes.c_int] * with_curve + [ctypes.c_void_p])
+    err = getattr(lib, f"{target}_error_string")
+    err.restype = ctypes.c_char_p
+    err.argtypes = [ctypes.c_int]
+    return lib
+
+
 @functools.lru_cache(maxsize=1)
 def load_hybrid_kernel():
     """The hybrid kernel's library, built from ``csrc/`` at first use.
     Raises :class:`BuildError` when it cannot be built."""
-    lib = _build.load("secp256k1_hybrid")
-    lib.secp256k1_hybrid_verify.restype = ctypes.c_int
-    lib.secp256k1_hybrid_verify.argtypes = [ctypes.c_void_p] * 8 + [
-        ctypes.c_int64, ctypes.c_void_p]
-    lib.secp256k1_hybrid_error_string.restype = ctypes.c_char_p
-    lib.secp256k1_hybrid_error_string.argtypes = [ctypes.c_int]
-    return lib
+    return _bind_kernel("secp256k1_hybrid", 7)
 
 
 def _check_cuda_args(spec, args, device: torch.device) -> None:
@@ -682,16 +809,18 @@ def _check_cuda_args(spec, args, device: torch.device) -> None:
                              "aligned")
 
 
-def _launch(lib, fn_name: str, args, n: int, device) -> torch.Tensor:
+def _launch(lib, fn_name: str, args, n: int, device,
+            curve_name: str | None = None) -> torch.Tensor:
     """Run the C launcher ``<prefix>_verify`` of one of the kernels on the
-    current stream of ``device``; returns ok (n,) bool without
-    synchronising, or raises LaunchError with ``<prefix>_error_string``'s
-    message."""
+    current stream of ``device`` (passing the curve id after n for the
+    two-curve kernels); returns ok (n,) bool without synchronising, or
+    raises LaunchError with ``<prefix>_error_string``'s message."""
     ok = torch.empty(n, dtype=torch.bool, device=device)
+    curve = () if curve_name is None else (_CURVE_IDS[curve_name],)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = getattr(lib, fn_name)(*(t.data_ptr() for t in args),
-                                   ok.data_ptr(), n, stream)
+                                   ok.data_ptr(), n, *curve, stream)
     if rc != 0:
         msg = getattr(lib, fn_name.replace("_verify", "_error_string"))(
             rc).decode()
@@ -770,13 +899,7 @@ def verify_core_r1_split_plain(g_idx, q_digits, q_x, q_y, xd_limbs,
 def load_r1_split_kernel():
     """The split kernel's library, built from ``csrc/`` at first use.
     Raises :class:`BuildError` when it cannot be built."""
-    lib = _build.load("secp256r1_split")
-    lib.secp256r1_split_verify.restype = ctypes.c_int
-    lib.secp256r1_split_verify.argtypes = [ctypes.c_void_p] * 12 + [
-        ctypes.c_int64, ctypes.c_void_p]
-    lib.secp256r1_split_error_string.restype = ctypes.c_char_p
-    lib.secp256r1_split_error_string.argtypes = [ctypes.c_int]
-    return lib
+    return _bind_kernel("secp256r1_split", 11)
 
 
 def verify_core_r1_split_cuda(g_idx, q_digits, q_x, q_y, xd_limbs,
@@ -833,9 +956,217 @@ verify_core_r1_split.build_count = lambda: _build.build_count(
     "secp256r1_split")
 
 
+def _curve_of(curve_name: str) -> WeierstrassCurve:
+    curve = CURVES.get(curve_name)
+    if curve is None:
+        raise ValueError(f"unknown curve {curve_name!r}: the kernels take "
+                         f"{sorted(CURVES)}")
+    return curve
+
+
+# ---------------------------------------------------------------------------
+# Kernel B8: the Shamir ladder (plain mode)
+# ---------------------------------------------------------------------------
+
+def verify_core_plain(u1_bits, u2_bits, q_pts, r_cands,
+                      curve_name: str) -> torch.Tensor:
+    """Plain PyTorch version of the Shamir verifier, on any device:
+    X = [u1]G + [u2]Q ≠ ∞ and x(X) ∈ {r_cands[0], r_cands[1]}, checked
+    projectively."""
+    curve = _curve_of(curve_name)
+    u1, u2, q, rc = _int64(u1_bits, u2_bits, q_pts, r_cands)
+    base = tuple(F.const(v, q.device, curve.p).expand_as(q[0])
+                 for v in (curve.gx, curve.gy, 1))
+    X, _, Z = shamir_ladder(u1, u2, base, (q[0], q[1], q[2]), curve)
+    return _accept(X, Z, rc, curve.p)
+
+
+@functools.lru_cache(maxsize=1)
+def load_shamir_kernel():
+    """The Shamir kernel's library (both curves), built from ``csrc/`` at
+    first use. Raises :class:`BuildError` when it cannot be built."""
+    return _bind_kernel("weierstrass_shamir", 4, with_curve=True)
+
+
+def verify_core_cuda(u1_bits, u2_bits, q_pts, r_cands,
+                     curve_name: str) -> torch.Tensor:
+    """Launch the hand-written Hopper kernel B8 (Shamir); returns ok (B,)
+    bool without synchronising. Raises when the kernel does not build or
+    the launch is refused."""
+    _curve_of(curve_name)
+    n = int(q_pts.shape[1])
+    spec = (("u1_bits", torch.uint8, (256, n)),
+            ("u2_bits", torch.uint8, (256, n)),
+            ("q_pts", torch.uint16, (3, n, F.NLIMB)),
+            ("r_cands", torch.uint16, (2, n, F.NLIMB)))
+    args = (u1_bits, u2_bits, q_pts, r_cands)
+    _check_cuda_args(spec, args, q_pts.device)
+    ok = _launch(load_shamir_kernel(), "weierstrass_shamir_verify", args, n,
+                 q_pts.device, curve_name)
+    with _LAUNCH_LOCK:
+        verify_core.launches += 1
+    return ok
+
+
+def verify_core(u1_bits, u2_bits, q_pts, r_cands,
+                curve_name: str) -> torch.Tensor:
+    """secp256k1/secp256r1 Shamir verify: ``u1_bits``, ``u2_bits`` (256, B)
+    u8 MSB-first bit planes; ``q_pts`` (3, B, 16) u16 = Q's projective
+    (X, Y, Z) (the JAX function's ``q_pts`` triple, stacked); ``r_cands``
+    (2, B, 16) u16 = r and r + n (or r again). Returns ok (B,) bool.
+
+    CPU tensors run the plain version; CUDA tensors launch the kernel (or
+    raise)."""
+    args = (u1_bits, u2_bits, q_pts, r_cands, curve_name)
+    if q_pts.device.type == "cpu":
+        return verify_core_plain(*args)
+    if q_pts.device.type == "cuda":
+        return verify_core_cuda(*args)
+    raise ValueError(f"unsupported device {q_pts.device}")
+
+
+verify_core.launches = 0
+verify_core.build_count = lambda: _build.build_count("weierstrass_shamir")
+
+
+# ---------------------------------------------------------------------------
+# Kernel B8: the GLV joint ladder (glv mode, secp256k1)
+# ---------------------------------------------------------------------------
+
+def verify_core_glv_plain(bits4, pts4, r_cands) -> torch.Tensor:
+    """Plain PyTorch version of the GLV verifier, on any device:
+    [a]P0 + [b]P1 + [c]P2 + [d]P3 ≠ ∞ with x in the two candidates."""
+    curve = SECP256K1
+    bits4, pts4, rc = _int64(bits4, pts4, r_cands)
+    X, _, Z = glv_ladder(bits4, [tuple(pt) for pt in pts4], curve)
+    return _accept(X, Z, rc, curve.p)
+
+
+@functools.lru_cache(maxsize=1)
+def load_glv_kernel():
+    """The GLV kernel's library, built from ``csrc/`` at first use. Raises
+    :class:`BuildError` when it cannot be built."""
+    return _bind_kernel("secp256k1_glv", 3)
+
+
+def verify_core_glv_cuda(bits4, pts4, r_cands) -> torch.Tensor:
+    """Launch the hand-written Hopper kernel B8 (GLV); returns ok (B,) bool
+    without synchronising. Raises when the kernel does not build or the
+    launch is refused."""
+    n = int(pts4.shape[2])
+    spec = (("bits4", torch.uint8, (GLV_BITS, n, 4)),
+            ("pts4", torch.uint16, (4, 3, n, F.NLIMB)),
+            ("r_cands", torch.uint16, (2, n, F.NLIMB)))
+    args = (bits4, pts4, r_cands)
+    _check_cuda_args(spec, args, pts4.device)
+    ok = _launch(load_glv_kernel(), "secp256k1_glv_verify", args, n,
+                 pts4.device)
+    with _LAUNCH_LOCK:
+        verify_core_glv.launches += 1
+    return ok
+
+
+def verify_core_glv(bits4, pts4, r_cands) -> torch.Tensor:
+    """secp256k1 GLV verify: ``bits4`` (128, B, 4) u8 MSB-first bit planes
+    of |a|, |b|, |c|, |d|; ``pts4`` (4, 3, B, 16) u16 = the sign-adjusted
+    G, φ(G), Q, φ(Q) in projective (X, Y, Z) (the JAX function's ``pts4``,
+    stacked); ``r_cands`` (2, B, 16) u16. Returns ok (B,) bool.
+
+    CPU tensors run the plain version; CUDA tensors launch the kernel (or
+    raise)."""
+    args = (bits4, pts4, r_cands)
+    if pts4.device.type == "cpu":
+        return verify_core_glv_plain(*args)
+    if pts4.device.type == "cuda":
+        return verify_core_glv_cuda(*args)
+    raise ValueError(f"unsupported device {pts4.device}")
+
+
+verify_core_glv.launches = 0
+verify_core_glv.build_count = lambda: _build.build_count("secp256k1_glv")
+
+
+# ---------------------------------------------------------------------------
+# Kernel B5: the single-scalar windowed ladder (windowed mode)
+# ---------------------------------------------------------------------------
+
+def verify_core_windowed_single_plain(g_idx, q_digits, q_x, q_y, r_limbs,
+                                      rn_ok, tab_x, tab_y, tab_ok,
+                                      curve_name: str) -> torch.Tensor:
+    """Plain PyTorch version of the windowed verifier, on any device."""
+    curve = _curve_of(curve_name)
+    g_idx, q_digits, q_x, q_y, r = _int64(g_idx, q_digits, q_x, q_y,
+                                          r_limbs)
+    X, _, Z = windowed_ladder_single(g_idx & 0xFFFF, q_digits,
+                                     (q_x, q_y), _int64(tab_x, tab_y, tab_ok),
+                                     curve)
+    return _accept_rn(X, Z, r, rn_ok.bool(), curve.p, curve.n)
+
+
+@functools.lru_cache(maxsize=1)
+def load_windowed_kernel():
+    """The windowed kernel's library (both curves), built from ``csrc/`` at
+    first use. Raises :class:`BuildError` when it cannot be built."""
+    return _bind_kernel("weierstrass_windowed", 9, with_curve=True)
+
+
+def verify_core_windowed_single_cuda(g_idx, q_digits, q_x, q_y, r_limbs,
+                                     rn_ok, tab_x, tab_y, tab_ok,
+                                     curve_name: str) -> torch.Tensor:
+    """Launch the hand-written Hopper kernel B5 (w = 16); returns ok (B,)
+    bool without synchronising. Raises when the kernel does not build or
+    the launch is refused."""
+    _curve_of(curve_name)
+    n = int(g_idx.shape[-1])
+    rows = 1 << R1_G_WINDOW
+    limbs = (n, F.NLIMB)
+    spec = (("g_idx", torch.int32, (256 // R1_G_WINDOW, n)),
+            ("q_digits", torch.uint8, (256 // R1_G_WINDOW,
+                                       R1_G_WINDOW // R1_Q_WINDOW, n)),
+            ("q_x", torch.uint16, limbs), ("q_y", torch.uint16, limbs),
+            ("r_limbs", torch.uint16, limbs),
+            ("rn_ok", torch.uint8, (n,)),
+            ("tab_x", torch.uint16, (rows, F.NLIMB)),
+            ("tab_y", torch.uint16, (rows, F.NLIMB)),
+            ("tab_ok", torch.uint8, (rows,)))
+    args = (g_idx, q_digits, q_x, q_y, r_limbs, rn_ok, tab_x, tab_y, tab_ok)
+    _check_cuda_args(spec, args, g_idx.device)
+    ok = _launch(load_windowed_kernel(), "weierstrass_windowed_verify", args,
+                 n, g_idx.device, curve_name)
+    with _LAUNCH_LOCK:
+        verify_core_windowed_single.launches += 1
+    return ok
+
+
+def verify_core_windowed_single(g_idx, q_digits, q_x, q_y, r_limbs, rn_ok,
+                                tab_x, tab_y, tab_ok,
+                                curve_name: str) -> torch.Tensor:
+    """secp256k1/secp256r1 windowed verify: ``g_idx`` (16, B) i32 16-bit
+    windows of u1; ``q_digits`` (16, 4, B) u8 4-bit windows of u2, both MSB
+    first; ``q_x``, ``q_y`` (B, 16) u16 (the JAX function's ``Q`` pair);
+    ``r_limbs`` (B, 16) u16; ``rn_ok`` (B,) u8; the curve's G table
+    (2^16, 16) u16 x, y and (2^16,) u8 ok. Returns ok (B,) bool.
+
+    CPU tensors run the plain version; CUDA tensors launch the kernel (or
+    raise)."""
+    args = (g_idx, q_digits, q_x, q_y, r_limbs, rn_ok, tab_x, tab_y, tab_ok,
+            curve_name)
+    if g_idx.device.type == "cpu":
+        return verify_core_windowed_single_plain(*args)
+    if g_idx.device.type == "cuda":
+        return verify_core_windowed_single_cuda(*args)
+    raise ValueError(f"unsupported device {g_idx.device}")
+
+
+verify_core_windowed_single.launches = 0
+verify_core_windowed_single.build_count = lambda: _build.build_count(
+    "weierstrass_windowed")
+
+
 def load_kernels() -> None:
-    """Build (or load) both ECDSA kernels, the two nvcc runs at once;
-    raises BuildError."""
+    """Build (or load) the service path's ECDSA kernels (B3, B4), the two
+    nvcc runs at once; raises BuildError. The other modes' kernels build at
+    their first call."""
     _build.build_all(["secp256k1_hybrid", "secp256r1_split"])
     load_hybrid_kernel()
     load_r1_split_kernel()
@@ -1125,6 +1456,108 @@ def prepare_batch_r1_split(curve: WeierstrassCurve, items):
     return _prepare_r1_split_python(curve, items)
 
 
+# -- plain (Shamir), glv and windowed --------------------------------------
+
+def _points_to_limbs_affine(col):
+    """Affine host points [(x, y)] → (X, Y) u16 limb arrays (B, 16)."""
+    return (F.to_limbs([pt[0] for pt in col]).astype(np.uint16),
+            F.to_limbs([pt[1] for pt in col]).astype(np.uint16))
+
+
+def _points_to_limbs(col):
+    """Affine host points [(x, y)] → projective (X, Y, Z = 1) u16 limb
+    arrays (B, 16)."""
+    px, py = _points_to_limbs_affine(col)
+    pz = np.zeros_like(px)
+    pz[..., 0] = 1
+    return (px, py, pz)
+
+
+def _r_cands(r0, r1) -> np.ndarray:
+    return np.stack([F.to_limbs(r0), F.to_limbs(r1)]).astype(np.uint16)
+
+
+def prepare_batch(curve: WeierstrassCurve, items):
+    """Host prep for the Shamir kernel: (pub, msg, r, s) items →
+    (u1_bits (256, B) u8, u2_bits (256, B) u8, q_pts (3, B, 16) u16,
+    r_cands (2, B, 16) u16, precheck (B,) bool), byte-identical to the JAX
+    package's (whose q_pts triple is stacked here)."""
+    precheck, q_pts, u1s, u2s, r0, r1 = _precheck_and_scalars(curve, items)
+    return (F.scalars_to_bits(u1s), F.scalars_to_bits(u2s),
+            np.stack(_points_to_limbs(q_pts)), _r_cands(r0, r1), precheck)
+
+
+def prepare_batch_glv(items):
+    """Host prep for the GLV kernel: (pub, msg, r, s) items → (bits4
+    (128, B, 4) u8 MSB-first bit planes of |a|, |b|, |c|, |d|, pts4
+    (4, 3, B, 16) u16, r_cands (2, B, 16) u16, precheck (B,) bool). Each
+    scalar is GLV-split (u1 = a + bλ, u2 = c + dλ); a negative half flips
+    its base point on the host. Every half must fit 128 bits (Babai
+    rounding bounds them below 2^127.4): ``scalars_to_bits`` raises
+    otherwise."""
+    curve = SECP256K1
+    p = curve.p
+    precheck, pubs, u1s, u2s, r0, r1 = _precheck_and_scalars(curve, items)
+    pts_cols = [[] for _ in range(4)]
+    scalars = [[] for _ in range(4)]
+
+    def phi(pt):
+        return (SECP256K1_BETA * pt[0] % p, pt[1])
+    for pub, u1, u2 in zip(pubs, u1s, u2s):
+        a, b = glv_decompose(u1)
+        c, d = glv_decompose(u2)
+        g = curve.g
+        for j, (k, pt) in enumerate(((a, g), (b, phi(g)), (c, pub),
+                                     (d, phi(pub)))):
+            if k < 0:
+                k, pt = -k, (pt[0], (p - pt[1]) % p)
+            scalars[j].append(k)
+            pts_cols[j].append(pt)
+    bits4 = np.stack([F.scalars_to_bits(scalars[j], GLV_BITS)
+                      for j in range(4)], axis=-1)
+    pts4 = np.stack([np.stack(_points_to_limbs(col)) for col in pts_cols])
+    return bits4, pts4, _r_cands(r0, r1), precheck
+
+
+def _prepare_windowed_single_native_words(e_words, r_words, s_words,
+                                          pub_words):
+    """Word-form native windowed prep (secp256r1, w = 16, ``sm_r1_prep``):
+    (g_idx (16, B) i32, q_digits (16, 4, B) u8, q_x, q_y, r_limbs (B, 16)
+    u16, rn_ok (B,) u8, precheck (B,) bool), byte-identical to the JAX
+    package's."""
+    (g_idx, q_digits, q_x, q_y, r_limbs, rn_ok,
+     precheck) = sp.r1_prep(e_words, r_words, s_words, pub_words)
+    w = R1_G_WINDOW
+    q_digits = q_digits.reshape(256 // w, w // R1_Q_WINDOW, len(e_words))
+    return g_idx, q_digits, q_x, q_y, r_limbs, rn_ok, precheck
+
+
+def _prepare_windowed_single_python(curve: WeierstrassCurve, items):
+    """Pure-Python windowed prep, any curve (bit-identical to the native
+    secp256r1 one)."""
+    w = R1_G_WINDOW
+    precheck, pubs, u1s, u2s, r0, _ = _precheck_and_scalars(curve, items)
+    g_idx = _bits_to_w_windows(F.scalars_to_bits(u1s), w).astype(np.int32)
+    digs = _bits_to_w_windows(F.scalars_to_bits(u2s),
+                              R1_Q_WINDOW).astype(np.uint8)
+    q_digits = digs.reshape(256 // w, w // R1_Q_WINDOW, *digs.shape[1:])
+    q_x, q_y = _points_to_limbs_affine(pubs)
+    r_limbs = F.to_limbs(r0).astype(np.uint16)
+    rn_ok = np.asarray([r + curve.n < curve.p for r in r0], dtype=np.uint8)
+    return g_idx, q_digits, q_x, q_y, r_limbs, rn_ok, precheck
+
+
+def prepare_batch_windowed_single(curve: WeierstrassCurve, items):
+    """Host prep for the windowed kernel (w = 16): (pub, msg, r, s) items →
+    (g_idx, q_digits, q_x, q_y, r_limbs, rn_ok, precheck) numpy arrays;
+    native for secp256r1 when libscalarmath is available, Python otherwise
+    (as in the reference). The G table is the caller's
+    (:func:`windowed_tables`)."""
+    if curve.name == "secp256r1" and sp.available():
+        return _prepare_windowed_single_native_words(*_items_to_words(items))
+    return _prepare_windowed_single_python(curve, items)
+
+
 # ---------------------------------------------------------------------------
 # Batch entry points (the service path)
 # ---------------------------------------------------------------------------
@@ -1159,22 +1592,54 @@ def wire_to_device(arrays, device="cuda", non_blocking: bool = False
     return tuple(out)
 
 
-def _dispatch(curve: WeierstrassCurve, wire, precheck, forced, n: int,
-              capacity: int, dev: torch.device, pool, lease) -> PendingBatch:
-    """Copy the wire arrays, launch the curve's kernel through the flight
+def _route(curve: WeierstrassCurve, mode: str, dev: torch.device):
+    """(profiler name, dispatcher, table tensors, keyword arguments) of a
+    checked ``mode``."""
+    if mode == "hybrid":
+        return ("weierstrass.hybrid_k1", verify_core_hybrid_wide,
+                hybrid_tables(dev), {})
+    if mode == "halfgcd":
+        return ("weierstrass.r1_split", verify_core_r1_split,
+                r1_split_tables(dev), {})
+    if mode == "glv":
+        return "weierstrass.glv", verify_core_glv, (), {}
+    kw = {"curve_name": curve.name}
+    if mode == "windowed":
+        return ("weierstrass.windowed", verify_core_windowed_single,
+                windowed_tables(curve, dev), kw)
+    return "weierstrass.plain", verify_core, (), kw
+
+
+def _prepare(curve: WeierstrassCurve, mode: str, items):
+    """The host prep of a checked ``mode``: (wire arrays, precheck,
+    forced or None)."""
+    if mode == "hybrid":
+        *wire, precheck = prepare_batch_hybrid_wide(items)
+        return wire, precheck, None
+    if mode == "halfgcd":
+        *wire, precheck, forced = prepare_batch_r1_split(curve, items)
+        return wire, precheck, forced
+    if mode == "windowed":
+        *wire, precheck = prepare_batch_windowed_single(curve, items)
+    elif mode == "glv":
+        *wire, precheck = prepare_batch_glv(items)
+    else:
+        *wire, precheck = prepare_batch(curve, items)
+    return wire, precheck, None
+
+
+def _dispatch(curve: WeierstrassCurve, mode: str, wire, precheck, forced,
+              n: int, capacity: int, dev: torch.device, pool,
+              lease) -> PendingBatch:
+    """Copy the wire arrays, launch the mode's kernel through the flight
     recorder and record the batch's event; the staging lease rides the
     pending handle until ``finish_batch``."""
     cuda = dev.type == "cuda"
+    name, fn, tables, kw = _route(curve, mode, dev)
     args = wire_to_device(wire, dev, non_blocking=cuda)
-    if curve.name == "secp256k1":
-        name, fn, tables = ("weierstrass.hybrid_k1", verify_core_hybrid_wide,
-                            hybrid_tables(dev))
-    else:
-        name, fn, tables = ("weierstrass.r1_split", verify_core_r1_split,
-                            r1_split_tables(dev))
     prof = get_profiler()
     ok = prof.call(name, fn, *args, *tables, live=n, capacity=capacity,
-                   scheme=curve.name)
+                   scheme=curve.name, **kw)
     event = None
     if cuda:
         ok_dev = ok
@@ -1189,17 +1654,16 @@ def _dispatch(curve: WeierstrassCurve, wire, precheck, forced, n: int,
 
 
 def _check_mode(curve: WeierstrassCurve, mode: str) -> str:
+    """The mode ``verify_batch`` runs for ``mode`` on ``curve`` ("auto":
+    hybrid for secp256k1, halfgcd for secp256r1, windowed otherwise), or
+    the reference's ValueError."""
     if mode == "auto":
         mode = {"secp256k1": "hybrid", "secp256r1": "halfgcd"}.get(
             curve.name, "windowed")
-    if mode in ("plain", "glv", "windowed"):
-        raise NotImplementedError(_NOT_PORTED.format(mode))
-    if mode not in ("hybrid", "halfgcd"):
+    if mode not in MODES:
         raise ValueError(f"unknown verify mode {mode!r}")
-    if mode == "hybrid" and curve.name != "secp256k1":
-        raise ValueError(f"mode {mode!r} requires secp256k1")
-    if mode == "halfgcd" and curve.name != "secp256r1":
-        raise ValueError(f"mode {mode!r} requires secp256r1")
+    if MODES[mode] is not None and curve.name != MODES[mode]:
+        raise ValueError(f"mode {mode!r} requires {MODES[mode]}")
     return mode
 
 
@@ -1208,29 +1672,36 @@ def verify_batch(curve: WeierstrassCurve,
                  mode: str = "auto", device="cuda") -> np.ndarray:
     """Batched ECDSA verify: [(pub_affine, msg, r, s)] → bool verdicts (B,).
     Pads to a power-of-two bucket (replicating the last item). ``mode``:
-    "auto" ("hybrid" for secp256k1, "halfgcd" for secp256r1), "hybrid" or
-    "halfgcd"; the JAX package's "plain", "glv" and "windowed" raise
-    NotImplementedError (not ported yet)."""
-    _check_mode(curve, mode)
-    return finish_batch(verify_batch_async(curve, items, device=device))
+
+    - "auto": "hybrid" for secp256k1, "halfgcd" for secp256r1;
+    - "hybrid": the GLV half-length ladder with the constant-G table (B3);
+    - "halfgcd": the half-gcd split ladder with the host [v2]R comparand
+      and per-item host fallback (B4);
+    - "windowed": single-scalar 16-bit constant-G windows and 4-bit Q
+      windows (B5);
+    - "glv": the all-select GLV ladder (B8, secp256k1);
+    - "plain": the 256-bit two-scalar Shamir ladder (B8)."""
+    return finish_batch(verify_batch_async(curve, items, device=device,
+                                           mode=mode))
 
 
-def verify_batch_async(curve: WeierstrassCurve, items, device="cuda"):
+def verify_batch_async(curve: WeierstrassCurve, items, device="cuda",
+                       mode: str = "auto"):
     """Prep and launch without waiting; returns a PendingBatch for
-    :func:`finish_batch`."""
-    _check_mode(curve, "auto")
+    :func:`finish_batch`. "auto" runs secp256k1 on the hybrid kernel,
+    secp256r1 on the split kernel and any other curve on the windowed
+    one; the kernels know secp256k1 and secp256r1 (another curve raises
+    ValueError)."""
+    mode = _check_mode(curve, mode)
+    _curve_of(curve.name)
     dev = resolve_device(device)
     n = len(items)
     if n == 0:
         return PendingBatch(None, np.zeros(0, dtype=bool), 0)
     padded = items + [items[-1]] * (F.bucket_size(n) - n)
-    if curve.name == "secp256k1":
-        *wire, precheck = prepare_batch_hybrid_wide(padded)
-        forced = None
-    else:
-        *wire, precheck, forced = prepare_batch_r1_split(curve, padded)
-    return _dispatch(curve, wire, precheck, forced, n, len(padded), dev,
-                     None, None)
+    wire, precheck, forced = _prepare(curve, mode, padded)
+    return _dispatch(curve, mode, wire, precheck, forced, n, len(padded),
+                     dev, None, None)
 
 
 def words_prep_available(curve: WeierstrassCurve) -> bool:
@@ -1268,6 +1739,9 @@ def verify_batch_async_words(curve: WeierstrassCurve, e_words, r_words,
     ``digests_to_words``). Padding goes through reused staging buffers,
     released by ``finish_batch`` once the batch's event has completed;
     callers gate on :func:`words_prep_available`."""
+    if not words_prep_available(curve):
+        raise ValueError(f"no word-form prep for {curve.name} (needs the "
+                         "native scalar prep and secp256k1 or secp256r1)")
     dev = resolve_device(device)
     n = len(e_words)
     if n == 0:
@@ -1281,14 +1755,13 @@ def verify_batch_async_words(curve: WeierstrassCurve, e_words, r_words,
     words = pad_word_rows((e_words, r_words, s_words, pub_words), capacity,
                           staging=lease, tags=tags)
     if curve.name == "secp256k1":
+        mode, forced = "hybrid", None
         *wire, precheck = _prepare_hybrid_native_words(*words)
-        forced = None
-    elif curve.name == "secp256r1":
-        *wire, precheck, forced = _prepare_r1_split_native_words(*words)
     else:
-        raise NotImplementedError(_NOT_PORTED.format("windowed"))
-    return _dispatch(curve, wire, precheck, forced, n, capacity, dev, pool,
-                     lease)
+        mode = "halfgcd"
+        *wire, precheck, forced = _prepare_r1_split_native_words(*words)
+    return _dispatch(curve, mode, wire, precheck, forced, n, capacity, dev,
+                     pool, lease)
 
 
 def finish_batch(pending: PendingBatch) -> np.ndarray:

@@ -6,9 +6,10 @@ torch.cuda.is_available() is False). On a machine with an NVIDIA GPU:
 (``--noconftest``: the suite's conftest imports JAX, which the GPU machine
 lacks.)
 
-Each CUDA kernel (B2 Ed25519, B3 secp256k1, B4 secp256r1, B6 SHA-256/
-Merkle) must give the same results as its plain PyTorch version, bit for
-bit, the batcher's device routes must run on B2-B4 and the Merkle seams of
+Each CUDA kernel (B2 Ed25519, B3 secp256k1, B4 secp256r1, B5 windowed and
+B8 Shamir/GLV ECDSA, B6 SHA-256/Merkle) must give the same results as its
+plain PyTorch version, bit for bit, the batcher's device routes must run on
+B2-B4, ``verify_batch``'s other modes on B5/B8 and the Merkle seams of
 batch_merkle on B6.
 """
 import hashlib
@@ -226,6 +227,113 @@ def test_batcher_on_the_card_raises_when_an_ecdsa_kernel_cannot_build(
         for load in (ed.load_kernel, wc.load_hybrid_kernel,
                      wc.load_r1_split_kernel):
             load.cache_clear()
+
+
+# ---------------------------------------------------------------------------
+# B5 and B8: the windowed, Shamir and GLV verify modes
+# ---------------------------------------------------------------------------
+
+MODE_CASES = [("secp256k1", "plain"), ("secp256k1", "glv"),
+              ("secp256k1", "windowed"), ("secp256r1", "plain"),
+              ("secp256r1", "windowed")]
+
+
+def _mode_items(curve, n, seed):
+    """``_ecdsa_items`` with the keys G (private key 1) and -G (n - 1),
+    whose G + Q is a doubling and the identity."""
+    items = _ecdsa_items(curve, n, seed)
+    for k, priv in ((0, 1), (2, curve.n - 1)):
+        msg = b"edge %d" % k
+        items[k] = (curve.mul(priv, curve.g), msg,
+                    *ecmath.ecdsa_sign(curve, priv, msg))
+    return items
+
+
+def _mode_call(wc, curve, mode, items, device):
+    """(dispatcher, plain version, device args incl. tables and curve
+    name, precheck) of a mode on ``items``."""
+    if mode == "plain":
+        *wire, precheck = wc.prepare_batch(curve, items)
+        fn, plain, tabs, extra = wc.verify_core, wc.verify_core_plain, (), (
+            curve.name,)
+    elif mode == "glv":
+        *wire, precheck = wc.prepare_batch_glv(items)
+        fn, plain, tabs, extra = (wc.verify_core_glv,
+                                  wc.verify_core_glv_plain, (), ())
+    else:
+        *wire, precheck = wc.prepare_batch_windowed_single(curve, items)
+        fn, plain = (wc.verify_core_windowed_single,
+                     wc.verify_core_windowed_single_plain)
+        tabs, extra = wc.windowed_tables(curve, device), (curve.name,)
+    args = [torch.from_numpy(np.array(a)).to(device) for a in wire]
+    return fn, plain, (*args, *tabs, *extra), precheck
+
+
+@pytest.mark.parametrize("bucket", [8, 256])
+@pytest.mark.parametrize("name,mode", MODE_CASES)
+def test_mode_kernels_match_plain_versions_on_the_card(cuda, name, mode,
+                                                       bucket):
+    """B5 (windowed), B8 Shamir (plain) and B8 GLV give their plain
+    versions' verdicts bit for bit, and after the precheck the host
+    oracle's, at two buckets (keys G and -G and a crafted r + n item
+    among the inputs)."""
+    from corda_tpu_torch.ops import weierstrass as wc
+    curve = ecmath.SECP256K1 if name == "secp256k1" else ecmath.SECP256R1
+    items = _mode_items(curve, bucket, 5 + bucket)
+    fn, plain, args, precheck = _mode_call(wc, curve, mode, items, cuda)
+    before = fn.launches
+    ok = fn(*args)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    assert torch.equal(ok.cpu(), plain(*args).cpu())
+    want = [ecmath.ecdsa_verify(curve, *it) for it in items]
+    assert want[0] and want[2] and want[-1]
+    assert list(ok.cpu().numpy() & precheck) == want
+
+
+@pytest.mark.parametrize("name,mode", MODE_CASES)
+def test_verify_batch_modes_launch_their_kernels(cuda, name, mode):
+    """verify_batch(mode=...) on the card runs the mode's kernel once and
+    gives the host oracle's verdicts."""
+    from corda_tpu_torch.ops import weierstrass as wc
+    curve = ecmath.SECP256K1 if name == "secp256k1" else ecmath.SECP256R1
+    fn = {"plain": wc.verify_core, "glv": wc.verify_core_glv,
+          "windowed": wc.verify_core_windowed_single}[mode]
+    items = _mode_items(curve, 20, 9)
+    before = fn.launches
+    got = wc.verify_batch(curve, items, mode=mode, device=cuda)
+    assert fn.launches == before + 1
+    assert list(got) == [ecmath.ecdsa_verify(curve, *it) for it in items]
+
+
+def test_mode_wrappers_refuse_bad_arguments_before_building(cuda):
+    """The B5/B8 wrappers refuse a wrong dtype, shape or curve with
+    ValueError before they build or launch anything."""
+    from corda_tpu_torch import _build
+    from corda_tpu_torch.ops import weierstrass as wc
+    curve = ecmath.SECP256K1
+    items = _mode_items(curve, 8, 3)
+    builds = dict(_build.BUILD_COUNT)
+    launches = (wc.verify_core.launches, wc.verify_core_glv.launches,
+                wc.verify_core_windowed_single.launches)
+    for mode, cuda_fn in (("plain", wc.verify_core_cuda),
+                          ("glv", wc.verify_core_glv_cuda),
+                          ("windowed", wc.verify_core_windowed_single_cuda)):
+        _, _, args, _ = _mode_call(wc, curve, mode, items, cuda)
+        bad = list(args)
+        bad[0] = bad[0].to(torch.int64)
+        with pytest.raises(ValueError):
+            cuda_fn(*bad)
+        bad = list(args)
+        bad[0] = bad[0][:4].contiguous()
+        with pytest.raises(ValueError):
+            cuda_fn(*bad)
+        if mode != "glv":
+            with pytest.raises(ValueError, match="unknown curve"):
+                cuda_fn(*args[:-1], "secp384r1")
+    assert dict(_build.BUILD_COUNT) == builds
+    assert (wc.verify_core.launches, wc.verify_core_glv.launches,
+            wc.verify_core_windowed_single.launches) == launches
 
 
 # ---------------------------------------------------------------------------

@@ -101,6 +101,58 @@ def _items_cached(name: str, n: int, seed: int):
     return tuple(out)
 
 
+#: The kinds of ``_mode_items``, in order: the first eight fill one bucket
+#: of 8 with every edge case of a ladder.
+MODE_KINDS = ("valid", "key G", "key -G", "rn valid", "rn invalid",
+              "tampered msg", "high s", "no key", "tampered r", "tampered s",
+              "r = 0", "r >= n", "off-curve key", "tiny r")
+
+
+def _mode_items(curve, n: int, seed: int):
+    """``n`` (pub, msg, r, s) items cycling through MODE_KINDS: besides the
+    kinds of ``_items``, valid signatures under the keys G (private key 1:
+    G + Q is a doubling) and -G (private key n - 1: G + Q is the
+    identity)."""
+    return list(_mode_items_cached(curve.name, n, seed))
+
+
+@functools.lru_cache(maxsize=None)
+def _mode_items_cached(name: str, n: int, seed: int):
+    curve = CURVES[name]
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(n):
+        kind = MODE_KINDS[i % len(MODE_KINDS)]
+        priv = {"key G": 1, "key -G": curve.n - 1}.get(
+            kind, int.from_bytes(rng.bytes(32), "little") % (curve.n - 1) + 1)
+        pub = curve.mul(priv, curve.g)
+        msg = rng.bytes(20 + i % 9)
+        r, s = ecmath.ecdsa_sign(curve, priv, msg)
+        if kind in ("rn valid", "rn invalid"):
+            out.append(_crafted_rn(curve, rng, msg, kind == "rn valid"))
+            continue
+        if kind == "tampered msg":
+            msg = msg + b"!"
+        elif kind == "high s":
+            s = curve.n - s
+        elif kind == "no key":
+            pub = None
+        elif kind == "tampered r":
+            r = (r + 1) % curve.n or 1
+        elif kind == "tampered s":
+            s = s + 1 if s + 1 <= curve.n // 2 else s - 1
+        elif kind == "r = 0":
+            r = 0
+        elif kind == "r >= n":
+            r = r + curve.n
+        elif kind == "off-curve key":
+            pub = (pub[0], (pub[1] + 1) % curve.p)
+        elif kind == "tiny r":
+            r = 1000
+        out.append((pub, msg, r, s))
+    return tuple(out)
+
+
 def _oracle(curve, items):
     return np.asarray([pub is not None
                        and ecmath.ecdsa_verify(curve, pub, msg, r, s)
@@ -376,19 +428,25 @@ def test_verify_batch_matches_oracle(name, route, monkeypatch):
 
 
 def test_verify_batch_modes():
-    """The modes of the reference that are not ported raise
-    NotImplementedError naming the roadmap; unknown or mismatched modes
-    raise ValueError."""
+    """Every (curve, mode) pair the reference accepts runs on the CPU and
+    agrees with "auto"; unknown or mismatched modes raise ValueError."""
+    for curve, modes in ((K1, ("plain", "glv", "windowed", "hybrid")),
+                         (R1, ("plain", "windowed", "halfgcd"))):
+        items = _items(curve, 8, 41)
+        auto = twc.verify_batch(curve, items, device="cpu")
+        assert auto.any() and not auto.all()
+        for mode in modes:
+            got = twc.verify_batch(curve, items, mode=mode, device="cpu")
+            assert np.array_equal(got, auto), (curve.name, mode)
     items = _items(K1, 1, 41)
-    for mode in ("plain", "glv", "windowed"):
-        with pytest.raises(NotImplementedError, match="A5"):
-            twc.verify_batch(K1, items, mode=mode, device="cpu")
     with pytest.raises(ValueError):
         twc.verify_batch(K1, items, mode="bogus", device="cpu")
     with pytest.raises(ValueError):
         twc.verify_batch(K1, items, mode="halfgcd", device="cpu")
     with pytest.raises(ValueError):
         twc.verify_batch(R1, items, mode="hybrid", device="cpu")
+    with pytest.raises(ValueError, match="requires secp256k1"):
+        twc.verify_batch(R1, items, mode="glv", device="cpu")
 
 
 def test_cuda_wrappers_check_arguments_then_build(monkeypatch, tmp_path):

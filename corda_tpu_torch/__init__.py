@@ -8,6 +8,8 @@ its signature-verification service path for one H100:
   hand-written CUDA kernels (sources in ``csrc/``, built at first use by
   ``_build`` into ``_build/``)
 - ``corda_tpu_torch.verifier``   — SignatureBatcher and the verifier services
+- ``corda_tpu_torch.parallel``   — meshes of devices and sharded verification
+- ``corda_tpu_torch.samples``    — the rates oracle's types, the SIMM margin
 - ``corda_tpu_torch.observability`` / ``utils`` — tracer, flight recorder,
   metrics and the fault-injection seam
 

@@ -1,6 +1,6 @@
 """Builds the port's native libraries from the repository's sources.
 
-Eight shared libraries, all with a plain C interface loaded through ctypes:
+Eleven shared libraries, all with a plain C interface loaded through ctypes:
 
 - ``scalarmath``       — ``native/scalarmath.cpp`` (host scalar prep), by g++;
 - ``ed25519_split``    — ``csrc/ed25519_split.cu`` (kernel B2, Ed25519
@@ -16,8 +16,13 @@ Eight shared libraries, all with a plain C interface loaded through ctypes:
 - ``secp256k1_glv``    — ``csrc/secp256k1_glv.cu`` (kernel B8, the GLV
   joint ladder) and
 - ``weierstrass_windowed`` — ``csrc/weierstrass_windowed.cu`` (kernel B5,
-  the single-scalar windowed ladder, secp256k1 and secp256r1), each by nvcc
-  for ``sm_90a``.
+  the single-scalar windowed ladder, secp256k1 and secp256r1),
+- ``ed25519_shamir``   — ``csrc/ed25519_shamir.cu`` (kernel B7, the Ed25519
+  Shamir ladder),
+- ``ed25519_windowed`` — ``csrc/ed25519_windowed.cu`` (kernel B7, the
+  Ed25519 windowed constant-B ladder) and
+- ``simm_margin``      — ``csrc/simm_margin.cu`` (kernel B10, the SIMM
+  margin), each by nvcc for ``sm_90a``.
 
 Each is built at first use into ``corda_tpu_torch/_build/`` (listed in
 ``.gitignore``) under a name that carries a hash of its sources and flags, so
@@ -81,6 +86,8 @@ def _cxx() -> str | None:
     return os.environ.get("CXX") or shutil.which("g++") or shutil.which("c++")
 
 
+#: The field and point headers of the Ed25519 kernels.
+_ED_HEADERS = ("field25519.cuh", "curve_ed25519.cuh")
 #: The field and curve headers of the two-curve ECDSA kernels.
 _CURVE_HEADERS = ("field_k1.cuh", "curve_k1.cuh", "field_p256.cuh",
                   "curve_p256.cuh")
@@ -94,7 +101,19 @@ _TARGETS = {
     },
     "ed25519_split": {
         "sources": [os.path.join(CSRC, "ed25519_split.cu")],
-        "deps": [os.path.join(CSRC, "field25519.cuh")],
+        "deps": [os.path.join(CSRC, h) for h in _ED_HEADERS],
+        "flags": _NVCC_FLAGS,
+        "compiler": nvcc_path,
+    },
+    "ed25519_shamir": {
+        "sources": [os.path.join(CSRC, "ed25519_shamir.cu")],
+        "deps": [os.path.join(CSRC, h) for h in _ED_HEADERS],
+        "flags": _NVCC_FLAGS,
+        "compiler": nvcc_path,
+    },
+    "ed25519_windowed": {
+        "sources": [os.path.join(CSRC, "ed25519_windowed.cu")],
+        "deps": [os.path.join(CSRC, h) for h in _ED_HEADERS],
         "flags": _NVCC_FLAGS,
         "compiler": nvcc_path,
     },
@@ -133,6 +152,12 @@ _TARGETS = {
     },
     "sha256": {
         "sources": [os.path.join(CSRC, "sha256.cu")],
+        "deps": [],
+        "flags": _NVCC_FLAGS,
+        "compiler": nvcc_path,
+    },
+    "simm_margin": {
+        "sources": [os.path.join(CSRC, "simm_margin.cu")],
         "deps": [],
         "flags": _NVCC_FLAGS,
         "compiler": nvcc_path,

@@ -1,6 +1,8 @@
-"""Batched Ed25519 signature verification: the split-k path (kernel B2).
+"""Batched Ed25519 signature verification: the split-k path (kernel B2)
+and the Shamir and windowed ladders (kernel B7).
 
-Port of the split path of corda_tpu/ops/ed25519.py. Host/device split:
+Port of corda_tpu/ops/ed25519.py. Host/device split of the split path (the
+service path):
 
 - host: per-signer (−A, −A′) rows from a decompression + [2^128]A cache,
   SHA-512 challenges (hashlib), scalar windows from native scalarmath
@@ -10,18 +12,25 @@ Port of the split path of corda_tpu/ops/ed25519.py. Host/device split:
   halves with two constant Niels tables (B and B′ = [2^128]B), then RFC 8032
   re-encoding acceptance against the wire R.
 
-``verify_core_split`` is the kernel's wrapper: for tensors on the CPU it runs
-the plain PyTorch version (``verify_core_split_plain``, 16-bit limbs in
-int64 lanes); for CUDA tensors it launches the hand-written kernel
-``csrc/ed25519_split.cu`` (built at first use) or raises — it never falls
-back. ``verify_core_split.launches`` counts the kernel launches.
+The two B7 verifiers run the whole 256-bit scalars: ``verify_core`` (the
+Shamir ladder over MSB-first bit planes, projective acceptance against the
+host-decoded R; prep ``prepare_batch``) and ``verify_core_windowed`` (w = 16
+windows of s over B's Niels table, 2-bit digits of k over {O, −A, −2A,
+−3A}, re-encoding acceptance; prep ``prepare_batch_windowed``). They are the
+per-shard work of the sharded path (``corda_tpu_torch.parallel``).
 
-Verification equation: accept iff [s]B == R + [k]A ⟺ [s]B + [k](−A) == R,
-compared by re-encoding the computed point (canonical y and x's parity).
+Each dispatcher (``verify_core_split``, ``verify_core``,
+``verify_core_windowed``) runs its plain PyTorch version (16-bit limbs in
+int64 lanes) for tensors on the CPU and launches its hand-written kernel
+(``csrc/ed25519_split.cu``, ``csrc/ed25519_shamir.cu``,
+``csrc/ed25519_windowed.cu``, built at first use) for CUDA tensors, or
+raises — it never falls back. ``.launches`` counts each one's kernel
+launches.
+
+Verification equation: accept iff [s]B == R + [k]A ⟺ [s]B + [k](−A) == R.
 """
 from __future__ import annotations
 
-import ctypes
 import functools
 import hashlib
 import threading
@@ -34,6 +43,7 @@ from .. import _build
 from ..core.crypto import ecmath
 from ..device import resolve_device
 from ..observability.profiling import get_profiler
+from . import _cuda as cu
 from . import field as F
 from . import scalarprep as sp
 from .staging import get_staging_pool
@@ -46,6 +56,11 @@ _D2 = ecmath.ED_D2
 #: Constant-base window width of the split ladder (128 = 8 x 16: 8 outer
 #: steps of 16 doublings + 8 joint A adds + 1 B + 1 B′ add).
 SPLIT_B_WINDOW = 16
+
+#: Constant-base window width of the windowed ladder (256 = 16 x 16: 16
+#: outer steps of 8 x (2 doublings + an A add) and one B add). Its table is
+#: the split ladder's low table (the same cache entry).
+B_WINDOW = 16
 
 
 # ---------------------------------------------------------------------------
@@ -103,6 +118,23 @@ def madd_niels(Pt, tab_p, tab_m, tab_td):
     g = F.add(d, c)
     h = F.add(b, a)
     return (F.mul(e, f), F.mul(g, h), F.mul(f, g), F.mul(e, h))
+
+
+def negate(Pt):
+    """−P in extended coordinates: (−X, Y, Z, −T)."""
+    x, y, z, t = Pt
+    zero = torch.zeros_like(x)
+    return (F.sub(zero, x), y, z, F.sub(zero, t))
+
+
+def _select4(idx, P0, P1, P2, P3):
+    """Branchless 4-way point select by ``idx`` (B,) in {0, 1, 2, 3}."""
+    idx = idx.unsqueeze(-1)
+
+    def pick(c0, c1, c2, c3):
+        return torch.where(idx == 3, c3, torch.where(
+            idx == 2, c2, torch.where(idx == 1, c1, c0)))
+    return tuple(pick(*cs) for cs in zip(P0, P1, P2, P3))
 
 
 # ---------------------------------------------------------------------------
@@ -166,6 +198,26 @@ def split_tables(device="cuda") -> tuple:
     """The six split-kernel tables: B's (y+x, y−x, 2dxy), then B′'s."""
     return (*b_table_device(SPLIT_B_WINDOW, 0, device),
             *b_table_device(SPLIT_B_WINDOW, 128, device))
+
+
+def windowed_table(device="cuda") -> tuple:
+    """The windowed kernel's Niels table of B, (y+x, y−x, 2dxy) as three
+    (65536, 16) u16 tensors on ``device``: the split kernel's low table, one
+    cached copy per device for both kernels."""
+    return b_table_device(B_WINDOW, 0, device)
+
+
+def load_windowed_table_from_numpy(tabs, device="cuda") -> tuple:
+    """Install the windowed kernel's Niels table built elsewhere (three
+    (65536, 16) u16 numpy arrays, e.g. the JAX package's
+    ``_b_window_table(16, 0)``) as this package's device-cached table (the
+    split kernel's low table too), and return it as tensors."""
+    dev = resolve_device(device)
+    tabs = [np.ascontiguousarray(t, dtype=np.uint16) for t in tabs]
+    if len(tabs) != 3 or any(t.shape != (1 << B_WINDOW, F.NLIMB)
+                             for t in tabs):
+        raise ValueError("expected three (65536, 16) u16 Niels tables")
+    return F.install_device_tables(("niels_b", B_WINDOW, 0), tabs, dev)
 
 
 def load_tables_from_numpy(tabs, device="cuda") -> tuple:
@@ -277,36 +329,7 @@ _LAUNCH_LOCK = threading.Lock()
 def load_kernel():
     """The split-k kernel's library, built from ``csrc/`` at first use.
     Raises :class:`BuildError` when it cannot be built."""
-    lib = _build.load("ed25519_split")
-    lib.ed25519_split_verify.restype = ctypes.c_int
-    lib.ed25519_split_verify.argtypes = [ctypes.c_void_p] * 11 + [
-        ctypes.c_int64, ctypes.c_void_p]
-    lib.ed25519_split_error_string.restype = ctypes.c_char_p
-    lib.ed25519_split_error_string.argtypes = [ctypes.c_int]
-    return lib
-
-
-_WIRE_SPEC = (("bb_idx", torch.int32), ("a_packed", torch.uint8),
-              ("rows", torch.uint16), ("r_packed", torch.uint16))
-
-
-def _check_cuda_args(args, n: int, device: torch.device) -> None:
-    shapes = ((16, n), (8, 8, n), (n, 6, F.NLIMB), (n, F.NLIMB))
-    for (name, dtype), shape, t in zip(_WIRE_SPEC, shapes, args[:4]):
-        if t.dtype != dtype or tuple(t.shape) != shape:
-            raise ValueError(f"{name}: expected {dtype} {shape}, got "
-                             f"{t.dtype} {tuple(t.shape)}")
-    for k, t in enumerate(args[4:]):
-        if t.dtype != torch.uint16 or tuple(t.shape) != (65536, F.NLIMB):
-            raise ValueError(f"table {k}: expected uint16 (65536, 16), got "
-                             f"{t.dtype} {tuple(t.shape)}")
-    for t in args:
-        if t.device != device:
-            raise ValueError(f"all arguments must be on {device}, got "
-                             f"{t.device}")
-        if not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError("arguments must be contiguous and 16-byte "
-                             "aligned")
+    return cu.bind_verify("ed25519_split", 10)
 
 
 def verify_core_split_cuda(bb_idx, a_packed, rows, r_packed,
@@ -317,19 +340,16 @@ def verify_core_split_cuda(bb_idx, a_packed, rows, r_packed,
     when the kernel does not build or the launch is refused."""
     args = (bb_idx, a_packed, rows, r_packed,
             tab_p, tab_m, tab_td, tab2_p, tab2_m, tab2_td)
-    device = bb_idx.device
     n = int(bb_idx.shape[-1])
-    _check_cuda_args(args, n, device)
-    lib = load_kernel()
-    ok = torch.empty(n, dtype=torch.bool, device=device)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = lib.ed25519_split_verify(*(t.data_ptr() for t in args),
-                                      ok.data_ptr(), n, stream)
-    if rc != 0:
-        msg = lib.ed25519_split_error_string(rc).decode()
-        raise _build.LaunchError(f"ed25519_split_verify launch failed: "
-                                 f"{msg} (cudaError {rc})")
+    table = (1 << SPLIT_B_WINDOW, F.NLIMB)
+    spec = (("bb_idx", torch.int32, (16, n)),
+            ("a_packed", torch.uint8, (8, 8, n)),
+            ("rows", torch.uint16, (n, 6, F.NLIMB)),
+            ("r_packed", torch.uint16, (n, F.NLIMB)),
+            *((f"table {k}", torch.uint16, table) for k in range(6)))
+    cu.check_args(spec, args, bb_idx.device)
+    ok = cu.launch_verify(load_kernel(), "ed25519_split_verify", args, n,
+                          bb_idx.device)
     with _LAUNCH_LOCK:
         verify_core_split.launches += 1
     return ok
@@ -362,6 +382,199 @@ def verify_core_split(bb_idx, a_packed, rows, r_packed,
 #: Kernel launches through the wrapper (the CPU path launches nothing).
 verify_core_split.launches = 0
 verify_core_split.build_count = lambda: _build.build_count("ed25519_split")
+
+
+# ---------------------------------------------------------------------------
+# Kernel B7: the Shamir and windowed ladders (plain versions and wrappers)
+# ---------------------------------------------------------------------------
+
+def _base_point(like: torch.Tensor) -> tuple:
+    """B in extended coordinates, broadcast to ``like``'s (B, 16) shape."""
+    bx, by = ecmath.ED_B
+    return tuple(F.const(v, like.device).expand_as(like).clone()
+                 for v in (bx, by, 1, bx * by % P))
+
+
+def shamir_ladder(bits1, bits2, P1, P2):
+    """[k1]P1 + [k2]P2 by interleaved double-and-add over (256, B)
+    MSB-first bit planes: one doubling and one complete addition of
+    {O, P1, P2, P1 + P2} per bit."""
+    P3 = add(P1, P2)
+    Pid = identity(P1[0].shape[:-1], P1[0].device)
+    acc = Pid
+    for b1, b2 in zip(bits1, bits2):
+        acc = add(double(acc), _select4(b1 + 2 * b2, Pid, P1, P2, P3))
+    return acc
+
+
+def verify_core_plain(s_bits, k_bits, neg_a, r_affine) -> torch.Tensor:
+    """Plain PyTorch version of the Shamir verifier (same wire form and
+    ladder as the CUDA kernel and the JAX kernel), on any device:
+    X = [s]B + [k](−A), accepted when X == Rx·Z and Y == Ry·Z."""
+    neg_a = tuple(c.to(torch.int64) for c in neg_a)
+    rx, ry = (c.to(torch.int64) for c in r_affine)
+    x, y, z, _ = shamir_ladder(s_bits.to(torch.int64),
+                               k_bits.to(torch.int64),
+                               _base_point(neg_a[0]), neg_a)
+    ok_x = (F.canon(x) == F.canon(F.mul(rx, z))).all(dim=-1)
+    ok_y = (F.canon(y) == F.canon(F.mul(ry, z))).all(dim=-1)
+    return ok_x & ok_y
+
+
+def windowed_ladder(b_idx, a_digits, neg_a, btab):
+    """[s]B + [k](−A): per outer step 8 × (2 doublings + an addition of
+    {O, −A, −2A, −3A} by a 2-bit digit of k), then one Niels mixed addition
+    of B's table row ``b_idx[step]``; step 0 starts from its first digit's
+    addend. ``b_idx`` (16, B), ``a_digits`` (16, 8, B), int64."""
+    Pid = identity(neg_a[0].shape[:-1], neg_a[0].device)
+    a2 = double(neg_a)
+    a_tab = (Pid, neg_a, a2, add(a2, neg_a))
+    acc = _select4(a_digits[0, 0], *a_tab)
+    for step in range(b_idx.shape[0]):
+        for m in range(1 if step == 0 else 0, B_WINDOW // 2):
+            acc = add(double(double(acc)),
+                      _select4(a_digits[step, m], *a_tab))
+        acc = madd_niels(acc, *_niels_rows(btab, b_idx[step]))
+    return acc
+
+
+def verify_core_windowed_plain(b_idx, a_digits, neg_a, r_y, r_sign,
+                               tab_p, tab_m, tab_td) -> torch.Tensor:
+    """Plain PyTorch version of the windowed verifier, on any device: one
+    Fermat inversion, then canonical y == ``r_y`` and x's parity ==
+    ``r_sign``."""
+    neg_a = tuple(c.to(torch.int64) for c in neg_a)
+    # int64 copies: CUDA indexing has no uint16 kernel
+    btab = tuple(t.to(torch.int64) for t in (tab_p, tab_m, tab_td))
+    x, y, z, _ = windowed_ladder(b_idx.to(torch.int64),
+                                 a_digits.to(torch.int64), neg_a, btab)
+    zi = F.inv25519(z)
+    x_aff = F.canon(F.mul(x, zi))
+    y_aff = F.canon(F.mul(y, zi))
+    ok_y = (y_aff == r_y.to(torch.int64)).all(dim=-1)
+    ok_sign = (x_aff[:, 0] & 1) == r_sign.to(torch.int64)
+    return ok_y & ok_sign
+
+
+@functools.lru_cache(maxsize=1)
+def load_shamir_kernel():
+    """The Shamir kernel's library, built from ``csrc/`` at first use.
+    Raises :class:`BuildError` when it cannot be built."""
+    return cu.bind_verify("ed25519_shamir", 8)
+
+
+@functools.lru_cache(maxsize=1)
+def load_windowed_kernel():
+    """The windowed kernel's library, built from ``csrc/`` at first use.
+    Raises :class:`BuildError` when it cannot be built."""
+    return cu.bind_verify("ed25519_windowed", 11)
+
+
+def verify_core_cuda(s_bits, k_bits, neg_a, r_affine) -> torch.Tensor:
+    """Launch the hand-written Hopper kernel B7 (Shamir) on the current
+    stream of the arguments' device; returns ok (B,) bool without
+    synchronising. Raises when the kernel does not build or the launch is
+    refused."""
+    n = int(s_bits.shape[-1])
+    limbs = (n, F.NLIMB)
+    args = (s_bits, k_bits, *neg_a, *r_affine)
+    spec = (("s_bits", torch.uint8, (256, n)),
+            ("k_bits", torch.uint8, (256, n)),
+            *((f"neg_a[{j}]", torch.uint16, limbs) for j in range(4)),
+            *((f"r_affine[{j}]", torch.uint16, limbs) for j in range(2)))
+    if len(args) != 8:
+        raise ValueError("neg_a takes 4 coordinates, r_affine 2")
+    cu.check_args(spec, args, s_bits.device)
+    ok = cu.launch_verify(load_shamir_kernel(), "ed25519_shamir_verify",
+                          args, n, s_bits.device)
+    with _LAUNCH_LOCK:
+        verify_core.launches += 1
+    return ok
+
+
+def verify_core(s_bits, k_bits, neg_a, r_affine) -> torch.Tensor:
+    """Shamir verify: ``s_bits``, ``k_bits`` (256, B) u8 MSB-first bit
+    planes; ``neg_a`` 4 × (B, 16) u16 = −A in extended coordinates;
+    ``r_affine`` 2 × (B, 16) u16 = R affine (host-decoded). Returns ok (B,)
+    bool: [s]B + [k](−A) == R.
+
+    CPU tensors run the plain version; CUDA tensors launch the kernel (or
+    raise)."""
+    if s_bits.device.type == "cpu":
+        return verify_core_plain(s_bits, k_bits, neg_a, r_affine)
+    if s_bits.device.type == "cuda":
+        return verify_core_cuda(s_bits, k_bits, neg_a, r_affine)
+    raise ValueError(f"unsupported device {s_bits.device}")
+
+
+verify_core.launches = 0
+verify_core.build_count = lambda: _build.build_count("ed25519_shamir")
+
+
+def verify_core_windowed_cuda(b_idx, a_digits, neg_a, r_y, r_sign,
+                              tab_p, tab_m, tab_td) -> torch.Tensor:
+    """Launch the hand-written Hopper kernel B7 (windowed) on the current
+    stream of the arguments' device; returns ok (B,) bool without
+    synchronising. Raises when the kernel does not build or the launch is
+    refused."""
+    n = int(b_idx.shape[-1])
+    limbs = (n, F.NLIMB)
+    rows = (1 << B_WINDOW, F.NLIMB)
+    args = (b_idx, a_digits, *neg_a, r_y, r_sign, tab_p, tab_m, tab_td)
+    spec = (("b_idx", torch.int32, (16, n)),
+            ("a_digits", torch.uint8, (16, 8, n)),
+            *((f"neg_a[{j}]", torch.uint16, limbs) for j in range(4)),
+            ("r_y", torch.uint16, limbs), ("r_sign", torch.uint8, (n,)),
+            *((name, torch.uint16, rows)
+              for name in ("tab_p", "tab_m", "tab_td")))
+    if len(args) != 11:
+        raise ValueError("neg_a takes 4 coordinates")
+    cu.check_args(spec, args, b_idx.device)
+    ok = cu.launch_verify(load_windowed_kernel(), "ed25519_windowed_verify",
+                          args, n, b_idx.device)
+    with _LAUNCH_LOCK:
+        verify_core_windowed.launches += 1
+    return ok
+
+
+def verify_core_windowed(b_idx, a_digits, neg_a, r_y, r_sign,
+                         tab_p, tab_m, tab_td) -> torch.Tensor:
+    """Windowed verify: ``b_idx`` (16, B) i32 w = 16 windows of s;
+    ``a_digits`` (16, 8, B) u8 2-bit digits of k; ``neg_a`` 4 × (B, 16)
+    u16; ``r_y`` (B, 16) u16 wire y; ``r_sign`` (B,) u8; B's Niels table
+    3 × (65536, 16) u16. Returns ok (B,) bool: compress([s]B + [k](−A)) ==
+    the wire R.
+
+    CPU tensors run the plain version; CUDA tensors launch the kernel (or
+    raise)."""
+    args = (b_idx, a_digits, neg_a, r_y, r_sign, tab_p, tab_m, tab_td)
+    if b_idx.device.type == "cpu":
+        return verify_core_windowed_plain(*args)
+    if b_idx.device.type == "cuda":
+        return verify_core_windowed_cuda(*args)
+    raise ValueError(f"unsupported device {b_idx.device}")
+
+
+verify_core_windowed.launches = 0
+verify_core_windowed.build_count = lambda: _build.build_count(
+    "ed25519_windowed")
+
+
+def b7_to_device(arrays, device="cuda"):
+    """A B7 prep's arrays (numpy, point coordinates as tuples) as the same
+    structure of contiguous tensors on ``device``."""
+    dev = resolve_device(device)
+
+    def one(a):
+        if isinstance(a, (tuple, list)):
+            return tuple(one(c) for c in a)
+        if isinstance(a, torch.Tensor):
+            return a.to(dev).contiguous()
+        a = np.asarray(a)
+        if not (a.flags.c_contiguous and a.flags.writeable):
+            a = np.array(a, order="C")
+        return torch.from_numpy(a).to(dev)
+    return tuple(one(a) for a in arrays)
 
 
 # ---------------------------------------------------------------------------
@@ -402,6 +615,105 @@ def _substitute_row() -> np.ndarray:
     """Row substituted for structurally-invalid items (the base point;
     verdict masked by precheck)."""
     return _row_from_affine(ecmath.ED_B)
+
+
+def _pack_point_ext(pts) -> tuple:
+    """Affine (x, y) points → extended-coordinate (X, Y, Z = 1, T = x·y)
+    limb arrays, four (B, 16) u16 (canonical 16-bit limbs; the kernels
+    widen them)."""
+    xs = F.to_limbs([p[0] for p in pts]).astype(np.uint16)
+    ys = F.to_limbs([p[1] for p in pts]).astype(np.uint16)
+    zs = np.zeros_like(xs)
+    zs[..., 0] = 1
+    ts = F.to_limbs([p[0] * p[1] % P for p in pts]).astype(np.uint16)
+    return (xs, ys, zs, ts)
+
+
+def _precheck_items(items, decompress_r: bool):
+    """The structural checks and scalar derivation of both B7 preps.
+    ``decompress_r=True`` (Shamir) also decodes R as a point (a modular
+    square root, ~0.3 ms of host bigints an item); the windowed kernel
+    re-encodes its result instead, so its prep only range-checks the raw y.
+    Failed items get A = R = B, s = k = 0 (verdict masked by precheck).
+    Returns (precheck, A points, R points or None, R y ints, R sign bits,
+    s scalars, k scalars)."""
+    n = len(items)
+    precheck = np.ones(n, dtype=bool)
+    a_pts, r_pts, r_ys, r_signs, ss, ks = [], [], [], [], [], []
+    for i, (pub, sig, msg) in enumerate(items):
+        ok = len(sig) == 64
+        R = None
+        if ok:
+            r_enc = int.from_bytes(sig[:32], "little")
+            r_y = r_enc & ((1 << 255) - 1)
+            r_sign = r_enc >> 255
+            s = int.from_bytes(sig[32:], "little")
+            A = _decompress_a(bytes(pub))
+            # non-canonical y (>= p) rejects like a failed decompression
+            ok = A is not None and r_y < P and s < ecmath.ED_L
+            if ok and decompress_r:
+                R = ecmath.ed_point_decompress(sig[:32])
+                ok = R is not None
+        if not ok:
+            precheck[i] = False
+            A, R, r_y, r_sign, s, k = ecmath.ED_B, ecmath.ED_B, 1, 0, 0, 0
+        else:
+            h = hashlib.sha512(sig[:32] + pub + msg).digest()
+            k = int.from_bytes(h, "little") % ecmath.ED_L
+        a_pts.append(A)
+        r_pts.append(R)
+        r_ys.append(r_y)
+        r_signs.append(r_sign)
+        ss.append(s)
+        ks.append(k)
+    return precheck, a_pts, r_pts, r_ys, r_signs, ss, ks
+
+
+def prepare_batch(items: list[tuple[bytes, bytes, bytes]]):
+    """Host prep for the Shamir kernel: (pub32, sig64, msg) triples →
+    (s_bits (256, B) u8, k_bits (256, B) u8 MSB-first, neg_a 4 × (B, 16)
+    u16, r_affine 2 × (B, 16) u16, precheck (B,) bool), numpy arrays
+    byte-identical to the JAX package's."""
+    precheck, a_pts, r_pts, _, _, ss, ks = _precheck_items(
+        items, decompress_r=True)
+    neg_a = _pack_point_ext([(P - x, y) for x, y in a_pts])
+    rx = F.to_limbs([p[0] for p in r_pts]).astype(np.uint16)
+    ry = F.to_limbs([p[1] for p in r_pts]).astype(np.uint16)
+    return (F.scalars_to_bits(ss), F.scalars_to_bits(ks), neg_a, (rx, ry),
+            precheck)
+
+
+def prepare_batch_windowed(items: list[tuple[bytes, bytes, bytes]],
+                           w: int = B_WINDOW, device_tables: bool = True,
+                           device="cuda"):
+    """Host prep for the windowed kernel: (pub32, sig64, msg) triples →
+    (b_idx (256/w, B) i32 w-bit windows of s, a_digits (256/w, w/2, B) u8
+    2-bit digits of k, neg_a 4 × (B, 16) u16, r_y (B, 16) u16 wire y,
+    r_sign (B,) u8, [the Niels table on ``device``,] precheck (B,) bool),
+    numpy arrays byte-identical to the JAX package's. w = 16 takes the
+    native scalar prep when it is built; other widths (and a missing
+    library) the Python windows. With ``device_tables=False`` the table is
+    left out (mesh callers hold one copy per device)."""
+    precheck, a_pts, _, r_ys, r_signs, ss, ks = _precheck_items(
+        items, decompress_r=False)
+    neg_a = _pack_point_ext([(P - x, y) for x, y in a_pts])
+    r_y = F.to_limbs(r_ys).astype(np.uint16)
+    r_sign = np.asarray(r_signs, dtype=np.uint8)
+    if w == B_WINDOW and sp.available():
+        # the k scalars are already reduced: feed them as 256-bit digests
+        h_words = np.zeros((len(items), 8), dtype=np.uint64)
+        h_words[:, :4] = sp.ints_to_words(ks)
+        b_idx, a_flat, _ = sp.ed_prep_plain(h_words, sp.ints_to_words(ss))
+        a_digits = a_flat.reshape(256 // w, w // 2, len(items))
+    else:
+        b_idx = _bits_to_w_windows(F.scalars_to_bits(ss), w).astype(
+            np.int32)
+        digs = _bits_to_windows(F.scalars_to_bits(ks)).astype(np.uint8)
+        a_digits = digs.reshape(256 // w, w // 2, *digs.shape[1:])
+    head = (b_idx, a_digits, neg_a, r_y, r_sign)
+    if device_tables:
+        return (*head, *b_table_device(w, 0, device), precheck)
+    return (*head, precheck)
 
 
 def prepare_batch_split(items: list[tuple[bytes, bytes, bytes]],

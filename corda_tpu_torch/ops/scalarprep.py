@@ -1,9 +1,11 @@
 """ctypes binding of native/scalarmath.cpp — batch host scalar prep.
 
 Port of corda_tpu/ops/scalarprep.py. The C library does the per-item scalar
-layer of the three device verifiers in one pass per batch: Ed25519 split-k
+layer of the device verifiers in one pass per batch: Ed25519 split-k
 (``sm_ed_prep``: the SHA-512 challenge mod L, the s < L range check, window
-and joint-digit extraction), secp256k1 hybrid GLV (``sm_k1_prep``: precheck,
+and joint-digit extraction), Ed25519 windowed (``sm_ed_prep_plain``: the
+same over whole 256-bit scalars, w = 16 windows of s and 2-bit digits of
+k), secp256k1 hybrid GLV (``sm_k1_prep``: precheck,
 batch s-inversion, GLV split, windows, limb packing) secp256r1 half-gcd
 split (``sm_r1_prep_hg``: precheck, batch s-inversion, half-gcd, t split,
 R decompression, the [v2]R ladder) and secp256r1 single-scalar windows
@@ -50,6 +52,9 @@ def _bind(lib) -> None:
     lib.sm_ed_prep.restype = ctypes.c_int
     lib.sm_ed_prep.argtypes = [
         ctypes.c_int64, _U64P, _U64P, _I32P, _I32P, _U8P, _U8P]
+    lib.sm_ed_prep_plain.restype = ctypes.c_int
+    lib.sm_ed_prep_plain.argtypes = [
+        ctypes.c_int64, _U64P, _U64P, _I32P, _U8P, _U8P]
     lib.sm_k1_prep.restype = ctypes.c_int
     lib.sm_k1_prep.argtypes = [
         ctypes.c_int64, _U64P, _U64P, _U64P, _U64P,
@@ -140,6 +145,25 @@ def ed_prep(h_words, s_words):
     if rc != 0:
         raise RuntimeError(f"sm_ed_prep failed: {rc}")
     return b_idx, b2_idx, a_packed, s_ok.astype(bool)
+
+
+def ed_prep_plain(h_words, s_words):
+    """Ed25519 windowed prep: (B, 8) digest words and (B, 4) s words →
+    (b_idx (16,B) i32 w = 16 windows of s, a_digits (128,B) u8 2-bit digits
+    of h mod L, s_ok (B,) bool), all MSB first; items with s >= L get
+    s = k = 0."""
+    lib = _native()
+    n = len(h_words)
+    b_idx = np.empty((16, n), dtype=np.int32)
+    a_digits = np.empty((128, n), dtype=np.uint8)
+    s_ok = np.empty(n, dtype=np.uint8)
+    rc = lib.sm_ed_prep_plain(
+        n, np.ascontiguousarray(h_words, dtype=np.uint64),
+        np.ascontiguousarray(s_words, dtype=np.uint64),
+        b_idx, a_digits, s_ok)
+    if rc != 0:
+        raise RuntimeError(f"sm_ed_prep_plain failed: {rc}")
+    return b_idx, a_digits, s_ok.astype(bool)
 
 
 def ecdsa_sigs_to_words(sigs) -> tuple[np.ndarray, np.ndarray, np.ndarray]:

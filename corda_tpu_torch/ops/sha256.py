@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from .. import _build
+from . import _cuda as cu
 
 _K = np.array([
     0x428a2f98, 0x71374491, 0xb5c0fbcf, 0xe9b5dba5, 0x3956c25b, 0x59f111f1,
@@ -168,8 +169,7 @@ def load_kernel():
     lib.sha256_blocks.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
                                   ctypes.c_int64, ctypes.c_int64,
                                   ctypes.c_void_p]
-    lib.sha256_error_string.restype = ctypes.c_char_p
-    lib.sha256_error_string.argtypes = [ctypes.c_int]
+    cu.bind_error_string(lib, "sha256")
     return lib
 
 
@@ -181,13 +181,6 @@ def _check_cuda_words(t: torch.Tensor, last: int, name: str) -> None:
         raise ValueError(f"{name} must be contiguous and 16-byte aligned")
 
 
-def _raise_on(lib, rc: int, what: str) -> None:
-    if rc != 0:
-        msg = lib.sha256_error_string(rc).decode()
-        raise _build.LaunchError(f"{what} launch failed: {msg} "
-                                 f"(cudaError {rc})")
-
-
 def _launch_pairs(lib, pairs: torch.Tensor) -> torch.Tensor:
     """One hash_pairs_kernel launch on the current stream (not counted)."""
     n = pairs.numel() // 16
@@ -197,7 +190,7 @@ def _launch_pairs(lib, pairs: torch.Tensor) -> torch.Tensor:
         stream = torch.cuda.current_stream(pairs.device).cuda_stream
         rc = lib.sha256_hash_pairs(pairs.data_ptr(), out.data_ptr(), n,
                                    stream)
-    _raise_on(lib, rc, "sha256 hash_pairs")
+    cu.raise_on_error(lib, "sha256", rc, "sha256 hash_pairs")
     return out
 
 
@@ -240,7 +233,7 @@ def sha256_blocks_cuda(blocks: torch.Tensor) -> torch.Tensor:
         stream = torch.cuda.current_stream(blocks.device).cuda_stream
         rc = lib.sha256_blocks(blocks.data_ptr(), out.data_ptr(), n,
                                n_blocks, stream)
-    _raise_on(lib, rc, "sha256_blocks")
+    cu.raise_on_error(lib, "sha256", rc, "sha256_blocks")
     with _LAUNCH_LOCK:
         sha256_blocks.launches += 1
     return out

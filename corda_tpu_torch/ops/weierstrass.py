@@ -47,7 +47,6 @@ secp256r1), ``hybrid``, ``halfgcd``, ``windowed``, ``plain`` and ``glv``.
 """
 from __future__ import annotations
 
-import ctypes
 import functools
 import hashlib
 import threading
@@ -61,6 +60,7 @@ from ..core.crypto.ecmath import (SECP256K1, SECP256K1_BETA, SECP256R1,
                                   WeierstrassCurve, _bits2int, glv_decompose)
 from ..device import resolve_device
 from ..observability.profiling import get_profiler
+from . import _cuda as cu
 from . import field as F
 from . import scalarprep as sp
 from .staging import get_staging_pool
@@ -769,64 +769,11 @@ def verify_core_hybrid_wide_plain(g_idx, q_bits, pts, r_limbs,
 _LAUNCH_LOCK = threading.Lock()
 
 
-def _bind_kernel(target: str, n_ptrs: int, with_curve: bool = False):
-    """Build (at first use) and bind one of the ECDSA kernel libraries: its
-    C launcher ``<target>_verify`` takes ``n_ptrs`` device pointers, the
-    verdict pointer, n, (the curve id, for the two-curve kernels) and the
-    stream; ``<target>_error_string`` names a CUDA error. Raises
-    :class:`BuildError` when the library cannot be built."""
-    lib = _build.load(target)
-    fn = getattr(lib, f"{target}_verify")
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * (n_ptrs + 1) + [ctypes.c_int64]
-                   + [ctypes.c_int] * with_curve + [ctypes.c_void_p])
-    err = getattr(lib, f"{target}_error_string")
-    err.restype = ctypes.c_char_p
-    err.argtypes = [ctypes.c_int]
-    return lib
-
-
 @functools.lru_cache(maxsize=1)
 def load_hybrid_kernel():
     """The hybrid kernel's library, built from ``csrc/`` at first use.
     Raises :class:`BuildError` when it cannot be built."""
-    return _bind_kernel("secp256k1_hybrid", 7)
-
-
-def _check_cuda_args(spec, args, device: torch.device) -> None:
-    """``spec``: (name, dtype, shape) per argument; every argument must be
-    on ``device``, contiguous and 16-byte aligned (the kernels load limb
-    rows as 16-byte vectors)."""
-    for (name, dtype, shape), t in zip(spec, args):
-        if t.dtype != dtype or tuple(t.shape) != shape:
-            raise ValueError(f"{name}: expected {dtype} {shape}, got "
-                             f"{t.dtype} {tuple(t.shape)}")
-        if t.device != device:
-            raise ValueError(f"all arguments must be on {device}, got "
-                             f"{t.device}")
-        if not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError("arguments must be contiguous and 16-byte "
-                             "aligned")
-
-
-def _launch(lib, fn_name: str, args, n: int, device,
-            curve_name: str | None = None) -> torch.Tensor:
-    """Run the C launcher ``<prefix>_verify`` of one of the kernels on the
-    current stream of ``device`` (passing the curve id after n for the
-    two-curve kernels); returns ok (n,) bool without synchronising, or
-    raises LaunchError with ``<prefix>_error_string``'s message."""
-    ok = torch.empty(n, dtype=torch.bool, device=device)
-    curve = () if curve_name is None else (_CURVE_IDS[curve_name],)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = getattr(lib, fn_name)(*(t.data_ptr() for t in args),
-                                   ok.data_ptr(), n, *curve, stream)
-    if rc != 0:
-        msg = getattr(lib, fn_name.replace("_verify", "_error_string"))(
-            rc).decode()
-        raise _build.LaunchError(f"{fn_name} launch failed: {msg} "
-                                 f"(cudaError {rc})")
-    return ok
+    return cu.bind_verify("secp256k1_hybrid", 7)
 
 
 def verify_core_hybrid_wide_cuda(g_idx, q_bits, pts, r_limbs,
@@ -844,9 +791,9 @@ def verify_core_hybrid_wide_cuda(g_idx, q_bits, pts, r_limbs,
             ("tab_y", torch.uint16, (rows, F.NLIMB)),
             ("tab_ok", torch.uint8, (rows,)))
     args = (g_idx, q_bits, pts, r_limbs, tab_x, tab_y, tab_ok)
-    _check_cuda_args(spec, args, g_idx.device)
-    ok = _launch(load_hybrid_kernel(), "secp256k1_hybrid_verify", args, n,
-                 g_idx.device)
+    cu.check_args(spec, args, g_idx.device)
+    ok = cu.launch_verify(load_hybrid_kernel(), "secp256k1_hybrid_verify",
+                          args, n, g_idx.device)
     with _LAUNCH_LOCK:
         verify_core_hybrid_wide.launches += 1
     return ok
@@ -899,7 +846,7 @@ def verify_core_r1_split_plain(g_idx, q_digits, q_x, q_y, xd_limbs,
 def load_r1_split_kernel():
     """The split kernel's library, built from ``csrc/`` at first use.
     Raises :class:`BuildError` when it cannot be built."""
-    return _bind_kernel("secp256r1_split", 11)
+    return cu.bind_verify("secp256r1_split", 11)
 
 
 def verify_core_r1_split_cuda(g_idx, q_digits, q_x, q_y, xd_limbs,
@@ -922,9 +869,9 @@ def verify_core_r1_split_cuda(g_idx, q_digits, q_x, q_y, xd_limbs,
                   (f"{half}_ok", torch.uint8, (rows,)))))
     args = (g_idx, q_digits, q_x, q_y, xd_limbs,
             lo_x, lo_y, lo_ok, hi_x, hi_y, hi_ok)
-    _check_cuda_args(spec, args, g_idx.device)
-    ok = _launch(load_r1_split_kernel(), "secp256r1_split_verify", args, n,
-                 g_idx.device)
+    cu.check_args(spec, args, g_idx.device)
+    ok = cu.launch_verify(load_r1_split_kernel(), "secp256r1_split_verify",
+                          args, n, g_idx.device)
     with _LAUNCH_LOCK:
         verify_core_r1_split.launches += 1
     return ok
@@ -985,7 +932,7 @@ def verify_core_plain(u1_bits, u2_bits, q_pts, r_cands,
 def load_shamir_kernel():
     """The Shamir kernel's library (both curves), built from ``csrc/`` at
     first use. Raises :class:`BuildError` when it cannot be built."""
-    return _bind_kernel("weierstrass_shamir", 4, with_curve=True)
+    return cu.bind_verify("weierstrass_shamir", 4, with_curve=True)
 
 
 def verify_core_cuda(u1_bits, u2_bits, q_pts, r_cands,
@@ -1000,9 +947,9 @@ def verify_core_cuda(u1_bits, u2_bits, q_pts, r_cands,
             ("q_pts", torch.uint16, (3, n, F.NLIMB)),
             ("r_cands", torch.uint16, (2, n, F.NLIMB)))
     args = (u1_bits, u2_bits, q_pts, r_cands)
-    _check_cuda_args(spec, args, q_pts.device)
-    ok = _launch(load_shamir_kernel(), "weierstrass_shamir_verify", args, n,
-                 q_pts.device, curve_name)
+    cu.check_args(spec, args, q_pts.device)
+    ok = cu.launch_verify(load_shamir_kernel(), "weierstrass_shamir_verify",
+                          args, n, q_pts.device, _CURVE_IDS[curve_name])
     with _LAUNCH_LOCK:
         verify_core.launches += 1
     return ok
@@ -1046,7 +993,7 @@ def verify_core_glv_plain(bits4, pts4, r_cands) -> torch.Tensor:
 def load_glv_kernel():
     """The GLV kernel's library, built from ``csrc/`` at first use. Raises
     :class:`BuildError` when it cannot be built."""
-    return _bind_kernel("secp256k1_glv", 3)
+    return cu.bind_verify("secp256k1_glv", 3)
 
 
 def verify_core_glv_cuda(bits4, pts4, r_cands) -> torch.Tensor:
@@ -1058,9 +1005,9 @@ def verify_core_glv_cuda(bits4, pts4, r_cands) -> torch.Tensor:
             ("pts4", torch.uint16, (4, 3, n, F.NLIMB)),
             ("r_cands", torch.uint16, (2, n, F.NLIMB)))
     args = (bits4, pts4, r_cands)
-    _check_cuda_args(spec, args, pts4.device)
-    ok = _launch(load_glv_kernel(), "secp256k1_glv_verify", args, n,
-                 pts4.device)
+    cu.check_args(spec, args, pts4.device)
+    ok = cu.launch_verify(load_glv_kernel(), "secp256k1_glv_verify", args,
+                          n, pts4.device)
     with _LAUNCH_LOCK:
         verify_core_glv.launches += 1
     return ok
@@ -1107,7 +1054,7 @@ def verify_core_windowed_single_plain(g_idx, q_digits, q_x, q_y, r_limbs,
 def load_windowed_kernel():
     """The windowed kernel's library (both curves), built from ``csrc/`` at
     first use. Raises :class:`BuildError` when it cannot be built."""
-    return _bind_kernel("weierstrass_windowed", 9, with_curve=True)
+    return cu.bind_verify("weierstrass_windowed", 9, with_curve=True)
 
 
 def verify_core_windowed_single_cuda(g_idx, q_digits, q_x, q_y, r_limbs,
@@ -1130,9 +1077,10 @@ def verify_core_windowed_single_cuda(g_idx, q_digits, q_x, q_y, r_limbs,
             ("tab_y", torch.uint16, (rows, F.NLIMB)),
             ("tab_ok", torch.uint8, (rows,)))
     args = (g_idx, q_digits, q_x, q_y, r_limbs, rn_ok, tab_x, tab_y, tab_ok)
-    _check_cuda_args(spec, args, g_idx.device)
-    ok = _launch(load_windowed_kernel(), "weierstrass_windowed_verify", args,
-                 n, g_idx.device, curve_name)
+    cu.check_args(spec, args, g_idx.device)
+    ok = cu.launch_verify(load_windowed_kernel(),
+                          "weierstrass_windowed_verify", args, n,
+                          g_idx.device, _CURVE_IDS[curve_name])
     with _LAUNCH_LOCK:
         verify_core_windowed_single.launches += 1
     return ok

@@ -1,2 +1,2 @@
-"""Sample applications (own copies of corda_tpu.samples' modules; only the
-rates oracle's data classes so far)."""
+"""Sample applications (own copies of corda_tpu.samples' modules: the rates
+oracle's data classes and the SIMM margin so far)."""

@@ -25,7 +25,10 @@ CUDA stream the batcher owns, and the three kernels are built when a CUDA
 batcher is made; a kernel that does not build or launch (``KernelError``)
 fails the batch's futures instead of falling back to the host, while the
 host fallback and breakers still answer every other dispatch failure;
-``mesh=`` is not supported yet; and with CORDA_TPU_PROFILE_DIR set, each
+``mesh=`` takes a ``corda_tpu_torch.parallel.Mesh`` (an ordered list of
+devices, one CUDA stream a shard) and shards every device batch over it,
+resolving it synchronously as the reference does; and with
+CORDA_TPU_PROFILE_DIR set, each
 device dispatch is a ``torch.profiler.record_function`` range of a profile
 exported as a Chrome trace into that directory on ``close()``.
 """
@@ -270,7 +273,7 @@ class SignatureBatcher:
     def __init__(self, max_batch: int = 32768, max_latency_s: float = 0.005,
                  metrics: MetricRegistry | None = None, use_device: bool = True,
                  host_crossover: int = 192, mesh=None,
-                 device=DEFAULT_DEVICE,
+                 device=None,
                  breaker_threshold: int = 3, breaker_cooldown_s: float = 5.0,
                  breaker_clock=_time.monotonic,
                  interactive_latency_s: float = 0.002,
@@ -302,17 +305,27 @@ class SignatureBatcher:
         else:
             self._default_ladder = tuple(bucket_ladder)
             self.bucket_ladder = {}
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh= (multi-device sharding) is not ported to "
-                "corda_tpu_torch yet")
+        # a parallel.Mesh shards every device batch over its devices (one
+        # stream a shard, owned by the mesh) — one node's batcher drives
+        # every card; mutually exclusive with device=, which pins one
+        if mesh is not None and device is not None:
+            raise ValueError("pass mesh= or device=, not both")
+        self.mesh = mesh
         # the device every launch of this batcher runs on (default "cuda";
         # raises when CUDA is absent — pass device="cpu" for the plain
-        # PyTorch path). CUDA launches go to a stream the batcher owns.
-        self.device = resolve_device(device)
-        self._stream = (torch.cuda.Stream(self.device)
-                        if self.device.type == "cuda" else None)
-        if self.use_device and self.device.type == "cuda":
+        # PyTorch path; with a mesh, its first device). Single-device CUDA
+        # launches go to a stream the batcher owns.
+        if mesh is not None:
+            self.device = mesh.devices[0]
+            self._stream = None
+        else:
+            self.device = resolve_device(
+                device if device is not None else DEFAULT_DEVICE)
+            self._stream = (torch.cuda.Stream(self.device)
+                            if self.device.type == "cuda" else None)
+        on_card = (any(d.type == "cuda" for d in mesh.devices)
+                   if mesh is not None else self.device.type == "cuda")
+        if self.use_device and on_card:
             # build (or load) the three kernels now: a missing compiler or
             # a refused source raises BuildError here, not at the first batch
             ed_ops.load_kernel()
@@ -339,7 +352,7 @@ class SignatureBatcher:
         self._profile_lock = threading.Lock()
         if self._profile_dir is not None:
             acts = [torch.profiler.ProfilerActivity.CPU]
-            if self.device.type == "cuda":
+            if on_card:
                 acts.append(torch.profiler.ProfilerActivity.CUDA)
             self._profiler = torch.profiler.profile(
                 activities=acts,
@@ -831,13 +844,15 @@ class SignatureBatcher:
         (remaining underflow, double set_result). A KernelError (the kernel
         does not build or its launch is refused) is no transient fault: it
         propagates, failing the batch's futures, and leaves the breaker as
-        it was, so the card's work never moves to the host unseen."""
+        it was, so the card's work never moves to the host unseen. With a
+        mesh the sharded helpers resolve the batch here, synchronously."""
         profile_ctx = self._profile_step(bucket)
         tracer = get_tracer()
         dspan = tracer.span("batcher.dispatch", parent=bctx, bucket=bucket,
                             batch_size=len(items), route="device",
                             flush_reason=reason)
         t_prep = _time.perf_counter()
+        mesh_verdicts = None
         breaker = self._breakers[bucket]
         try:
             with self.metrics.timer(f"SigBatcher.{bucket}.Prep"), \
@@ -845,9 +860,15 @@ class SignatureBatcher:
                 # chaos seam: a "raise" rule here exercises exactly the
                 # fallback + breaker path a real kernel failure would
                 fault_point("batcher.device_dispatch", detail=bucket)
+                if self.mesh is not None:
+                    # the sharded helpers resolve the batch synchronously
+                    if bucket == "ed25519":
+                        mesh_verdicts = self._run_mesh_ed25519(items)
+                    else:
+                        mesh_verdicts = self._run_mesh_ecdsa(bucket, items)
                 # host prep HERE — overlaps other schemes' preps and the
                 # finish pool's device waits
-                if bucket == "ed25519":
+                elif bucket == "ed25519":
                     pending, finish = self._start_ed25519(items)
                 else:
                     pending, finish = self._start_ecdsa(bucket, items)
@@ -864,6 +885,15 @@ class SignatureBatcher:
             dspan.set_tag("fallback", "host")
             dspan.finish()
             self._resolve(bucket, items, self._run_host(items), bctx)
+            return None
+        if self.mesh is not None:
+            breaker.record_success()
+            self._mark_device(items)
+            self.metrics.histogram("verifier_dispatch_seconds").update(
+                _time.perf_counter() - t_prep, trace_id=_tid(bctx))
+            dspan.set_tag("mesh", True)
+            dspan.finish()
+            self._resolve(bucket, items, mesh_verdicts, bctx)
             return None
         t_end = _time.perf_counter()
         # feed the flight recorder's pipeline view: this prep busy interval
@@ -1020,6 +1050,33 @@ class SignatureBatcher:
         e_words = sp.digests_to_words(
             [hashlib.sha256(p.content).digest() for p in items], 4)
         return e_words, r_words, s_words, pub_words
+
+    def _run_mesh_ed25519(self, items: list[_Pending]):
+        from ..parallel import sharded_verify_batch_ed25519
+        return sharded_verify_batch_ed25519(
+            self.mesh, [(p.key.encoded, p.signature, p.content)
+                        for p in items])
+
+    def _run_mesh_ecdsa(self, bucket: str, items: list[_Pending]):
+        from ..parallel import (sharded_verify_batch_secp256k1,
+                                sharded_verify_batch_secp256k1_words,
+                                sharded_verify_batch_secp256r1_words)
+        curve = ecmath.SECP256K1 if bucket == "secp256k1" else ecmath.SECP256R1
+        words = wc_ops.words_prep_available(curve)
+        if bucket == "secp256k1":
+            if words:
+                return sharded_verify_batch_secp256k1_words(
+                    self.mesh, *self._ecdsa_words(curve, items))
+            return sharded_verify_batch_secp256k1(
+                self.mesh, self._ecdsa_kernel_items(curve, items))
+        if words:
+            return sharded_verify_batch_secp256r1_words(
+                self.mesh, *self._ecdsa_words(curve, items))
+        # no item-form r1 mesh entry (as in the reference): without the
+        # native prep, the first device verifies the batch whole
+        return wc_ops.verify_batch(curve,
+                                   self._ecdsa_kernel_items(curve, items),
+                                   device=self.device)
 
     def _start_ecdsa(self, bucket: str, items: list[_Pending]):
         curve = ecmath.SECP256K1 if bucket == "secp256k1" else ecmath.SECP256R1

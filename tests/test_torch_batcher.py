@@ -386,7 +386,9 @@ def test_device_default_raises_without_cuda_and_mesh_is_not_ported():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             SignatureBatcher()
-    with pytest.raises(NotImplementedError):
+    # mesh= is ported: together with device= it raises the reference's
+    # ValueError (tests/test_torch_batcher_mesh.py drives a mesh)
+    with pytest.raises(ValueError, match="pass mesh= or device=, not both"):
         SignatureBatcher(device="cpu", mesh=object())
 
 

@@ -7,10 +7,13 @@ torch.cuda.is_available() is False). On a machine with an NVIDIA GPU:
 lacks.)
 
 Each CUDA kernel (B2 Ed25519, B3 secp256k1, B4 secp256r1, B5 windowed and
-B8 Shamir/GLV ECDSA, B6 SHA-256/Merkle) must give the same results as its
-plain PyTorch version, bit for bit, the batcher's device routes must run on
-B2-B4, ``verify_batch``'s other modes on B5/B8 and the Merkle seams of
-batch_merkle on B6.
+B8 Shamir/GLV ECDSA, B6 SHA-256/Merkle, B7 Ed25519 Shamir and windowed)
+must give the same results as its plain PyTorch version, bit for bit (B10,
+the SIMM margin, too: both round every float32 operation in one order);
+the batcher's device routes
+must run on B2-B4, ``verify_batch``'s other modes on B5/B8, the Merkle
+seams of batch_merkle on B6 and a 2-shard mesh of one card on B2-B4, B6
+and B7.
 """
 import hashlib
 
@@ -473,3 +476,156 @@ def test_b6_raises_kernel_error_when_its_library_cannot_build(
             bm.verify_filtered_batch(ftxs, device_crossover=1, device=cuda)
     finally:
         sha.load_kernel.cache_clear()
+
+
+# ---------------------------------------------------------------------------
+# B7 (Ed25519 Shamir and windowed), B2 after the header move, B10, B9
+# ---------------------------------------------------------------------------
+
+def _ed_adversarial(n, seed):
+    """``n`` Ed25519 items cycling through eleven kinds: valid, flipped s
+    bit, flipped message bit, the wrong key, s >= L, flipped R sign bit,
+    R y >= p, an undecodable key, an undecodable R (y = 2), a short
+    signature, valid. Returns (items, oracle verdicts)."""
+    rng = np.random.default_rng(seed)
+    items = []
+    for i in range(n):
+        sk = rng.bytes(32)
+        pub = ecmath.ed25519_public_key(sk)
+        msg = rng.bytes(20 + i % 13)
+        sig = ecmath.ed25519_sign(sk, msg)
+        kind = i % 11
+        if kind == 1:
+            sig = sig[:40] + bytes([sig[40] ^ 1]) + sig[41:]
+        elif kind == 2:
+            msg = msg[:-1] + bytes([msg[-1] ^ 1])
+        elif kind == 3:
+            pub = ecmath.ed25519_public_key(rng.bytes(32))
+        elif kind == 4:
+            s = int.from_bytes(sig[32:], "little") + ecmath.ED_L
+            sig = sig[:32] + s.to_bytes(32, "little")
+        elif kind == 5:
+            sig = sig[:31] + bytes([sig[31] ^ 0x80]) + sig[32:]
+        elif kind == 6:
+            sig = (2**255 - 10).to_bytes(32, "little") + sig[32:]
+        elif kind == 7:
+            pub = b"\xff" * 32
+        elif kind == 8:
+            sig = (2).to_bytes(32, "little") + sig[32:]
+        elif kind == 9:
+            sig = sig[:63]
+        items.append((pub, sig, msg))
+    return items, [ecmath.ed25519_verify(p, m, s) for p, s, m in items]
+
+
+@pytest.mark.parametrize("n", [48, 256])
+@pytest.mark.parametrize("ladder", ["shamir", "windowed"])
+def test_b7_kernels_match_plain_versions_on_the_card(cuda, ladder, n):
+    from corda_tpu_torch.ops import ed25519 as ed
+    items, want = _ed_adversarial(n, 70 + n)
+    if ladder == "shamir":
+        *wire, precheck = ed.prepare_batch(items)
+        fn, plain, tabs = ed.verify_core, ed.verify_core_plain, ()
+    else:
+        *wire, precheck = ed.prepare_batch_windowed(items,
+                                                    device_tables=False)
+        fn, plain = ed.verify_core_windowed, ed.verify_core_windowed_plain
+        tabs = ed.windowed_table(cuda)
+    args = ed.b7_to_device(wire, cuda)
+    before = fn.launches
+    ok = fn(*args, *tabs)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    assert torch.equal(ok.cpu(), plain(*args, *tabs).cpu())
+    assert list(ok.cpu().numpy() & precheck) == want
+    assert True in want and False in want
+
+
+def test_b2_still_matches_its_plain_version_after_the_header_move(cuda):
+    """B2's formulas now live in curve_ed25519.cuh, shared with B7."""
+    from corda_tpu_torch.ops import ed25519 as ed
+    items, want = _ed_adversarial(256, 81)
+    *wire, precheck = ed.prepare_batch_split(items)
+    args = ed.wire_to_device(*wire, device=cuda)
+    tabs = ed.split_tables(cuda)
+    ok = ed.verify_core_split(*args, *tabs)
+    torch.cuda.synchronize()
+    assert torch.equal(ok.cpu(), ed.verify_core_split_plain(*args,
+                                                            *tabs).cpu())
+    assert list(ok.cpu().numpy() & precheck) == want
+    assert ed.windowed_table(cuda)[0] is tabs[0]   # one table, two kernels
+
+
+@pytest.mark.parametrize("n", [1, 16, 300, 1024, 65536])
+def test_b10_kernel_matches_plain_version_on_the_card(cuda, n):
+    from corda_tpu_torch.samples import simm_valuation as simm
+    book = simm.demo_portfolio(n, seed=n)
+    sens = torch.from_numpy(book).to(cuda)
+    rw, corr = simm.model_tensors(cuda)
+    before = simm.margin.launches
+    k = simm.margin(sens, rw, corr)
+    p = simm.margin_plain(sens, rw, corr)
+    torch.cuda.synchronize()
+    assert simm.margin.launches == before + 1
+    assert k.dtype == torch.float32 and k.shape == ()
+    kv, pv = float(k), float(p)
+    assert abs(kv - pv) <= 1e-5 * pv
+    if n <= 1024:
+        assert abs(kv - pv) * 100 <= 2
+    # the kernel rounds every operation as the plain version does
+    assert k.cpu().numpy().tobytes() == p.cpu().numpy().tobytes()
+    again = simm.margin(sens, rw, corr)
+    assert float(again) == kv                      # no atomics: same order
+    cents = simm.compute_margin_cents(book, device=cuda)
+    assert cents == int(round(kv * 100))
+
+
+def test_two_shard_mesh_on_one_card(cuda):
+    """Two shards on cuda:0 (two streams): the batch wrapper, the B7
+    callables, the sharded Merkle root and the transaction step equal the
+    unsharded results, and each path launched its kernels."""
+    from corda_tpu_torch import parallel as par
+    from corda_tpu_torch.ops import ed25519 as ed
+    from corda_tpu_torch.ops import sha256 as sha
+    mesh = par.make_mesh(devices=[cuda, cuda])
+    assert mesh.size == 2 and all(s is not None for s in mesh.streams)
+    items, want = _ed_adversarial(64, 90)
+    before = ed.verify_core_split.launches
+    got = par.sharded_verify_batch_ed25519(mesh, items)
+    assert list(got) == want
+    assert ed.verify_core_split.launches == before + 2
+    *wire, precheck = ed.prepare_batch_windowed(items, device_tables=False)
+    before = ed.verify_core_windowed.launches
+    ok = par.sharded_ed25519_verify_windowed(mesh)(*wire)
+    assert ok.device == cuda and ed.verify_core_windowed.launches == before + 2
+    assert list(ok.cpu().numpy() & precheck) == want
+    leaves = np.random.default_rng(5).integers(
+        0, 1 << 32, (1 << 12, 8), dtype=np.uint64).astype(np.uint32)
+    root = par.sharded_merkle_root(mesh)(leaves)
+    whole = sha.merkle_root(torch.from_numpy(leaves.view(np.int32)).to(cuda))
+    assert torch.equal(root, whole)
+    *wire, precheck = ed.prepare_batch(items)
+    before = ed.verify_core.launches
+    ok, root = par.tx_verify_step(mesh)(*wire, leaves)
+    assert ed.verify_core.launches == before + 2
+    assert list(ok.cpu().numpy() & precheck) == want
+    assert torch.equal(root, whole)
+
+
+def test_mesh_batcher_on_the_card(cuda):
+    from corda_tpu_torch.core.crypto import PublicKey
+    from corda_tpu_torch.core.crypto.schemes import EDDSA_ED25519_SHA512
+    from corda_tpu_torch.parallel import make_mesh
+    from corda_tpu_torch.verifier import SignatureBatcher
+    items, want = _ed_adversarial(300, 91)
+    checks = [(PublicKey(EDDSA_ED25519_SHA512, p), s, m) for p, s, m in items]
+    b = SignatureBatcher(mesh=make_mesh(devices=[cuda, cuda]),
+                         host_crossover=0, max_latency_s=0.01)
+    try:
+        got = b.submit_group(checks).result(timeout=300)
+    finally:
+        b.close()
+    assert got == want
+    snap = b.metrics.snapshot()
+    assert snap["SigBatcher.DeviceChecked"]["count"] == len(checks)
+    assert "SigBatcher.BatchFailure" not in snap

@@ -91,6 +91,12 @@ _ED_HEADERS = ("field25519.cuh", "curve_ed25519.cuh")
 #: The field and curve headers of the two-curve ECDSA kernels.
 _CURVE_HEADERS = ("field_k1.cuh", "curve_k1.cuh", "field_p256.cuh",
                   "curve_p256.cuh")
+#: The lane-pair kernels' own field, formulas and word steps (B2, B4).
+_PAIR_HEADERS = ("carry.cuh", "lanes.cuh")
+_ED_PAIR_HEADERS = ("field25519_comba.cuh", "curve_ed25519_pair.cuh",
+                    *_PAIR_HEADERS)
+_P256_PAIR_HEADERS = ("field_p256_comba.cuh", "curve_p256_pair.cuh",
+                      *_PAIR_HEADERS)
 
 _TARGETS = {
     "scalarmath": {
@@ -101,7 +107,8 @@ _TARGETS = {
     },
     "ed25519_split": {
         "sources": [os.path.join(CSRC, "ed25519_split.cu")],
-        "deps": [os.path.join(CSRC, h) for h in _ED_HEADERS],
+        "deps": [os.path.join(CSRC, h) for h in _ED_HEADERS
+                 + _ED_PAIR_HEADERS],
         "flags": _NVCC_FLAGS,
         "compiler": nvcc_path,
     },
@@ -126,8 +133,7 @@ _TARGETS = {
     },
     "secp256r1_split": {
         "sources": [os.path.join(CSRC, "secp256r1_split.cu")],
-        "deps": [os.path.join(CSRC, h) for h in ("field_p256.cuh",
-                                                  "curve_p256.cuh")],
+        "deps": [os.path.join(CSRC, h) for h in _P256_PAIR_HEADERS],
         "flags": _NVCC_FLAGS,
         "compiler": nvcc_path,
     },

@@ -94,6 +94,9 @@ __global__ void __launch_bounds__(128) ed25519_shamir_verify_kernel(
   ok[i] = (ok_x && ok_y) ? 1 : 0;
 }
 
+// Launch geometry: threads a block, and threads (lanes) a signature.
+static const int kBlock = 128, kLanes = 1;
+
 extern "C" {
 
 // Launches the kernel on ``stream`` and returns cudaGetLastError() (0 on
@@ -103,7 +106,7 @@ int ed25519_shamir_verify(const void *s_bits, const void *k_bits,
                           const void *at, const void *rx, const void *ry,
                           void *ok, int64_t n, void *stream) {
   if (n <= 0) return 0;
-  const int threads = 128;
+  const int threads = kBlock;
   const int64_t blocks = (n + threads - 1) / threads;
   ed25519_shamir_verify_kernel<<<(unsigned)blocks, threads, 0,
                                  (cudaStream_t)stream>>>(
@@ -113,6 +116,20 @@ int ed25519_shamir_verify(const void *s_bits, const void *k_bits,
       (uint8_t *)ok, n);
   return (int)cudaGetLastError();
 }
+
+// Resident blocks a multiprocessor of the kernel at ``block`` threads a
+// block (cudaOccupancyMaxActiveBlocksPerMultiprocessor), or -1 on error.
+int ed25519_shamir_occupancy(int block) {
+  int blocks = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &blocks, ed25519_shamir_verify_kernel, block, 0) != cudaSuccess)
+    return -1;
+  return blocks;
+}
+
+int ed25519_shamir_block(void) { return kBlock; }
+
+int ed25519_shamir_lanes(void) { return kLanes; }
 
 const char *ed25519_shamir_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);

@@ -83,6 +83,9 @@ __global__ void __launch_bounds__(128) ed25519_windowed_verify_kernel(
   ok[i] = (diff == 0 && (x.v[0] & 1u) == (uint32_t)(r_sign[i] & 1)) ? 1 : 0;
 }
 
+// Launch geometry: threads a block, and threads (lanes) a signature.
+static const int kBlock = 128, kLanes = 1;
+
 extern "C" {
 
 // Launches the kernel on ``stream`` and returns cudaGetLastError() (0 on
@@ -94,7 +97,7 @@ int ed25519_windowed_verify(const void *b_idx, const void *a_digits,
                             const void *tm, const void *ttd, void *ok,
                             int64_t n, void *stream) {
   if (n <= 0) return 0;
-  const int threads = 128;
+  const int threads = kBlock;
   const int64_t blocks = (n + threads - 1) / threads;
   ed25519_windowed_verify_kernel<<<(unsigned)blocks, threads, 0,
                                    (cudaStream_t)stream>>>(
@@ -105,6 +108,20 @@ int ed25519_windowed_verify(const void *b_idx, const void *a_digits,
       (uint8_t *)ok, n);
   return (int)cudaGetLastError();
 }
+
+// Resident blocks a multiprocessor of the kernel at ``block`` threads a
+// block (cudaOccupancyMaxActiveBlocksPerMultiprocessor), or -1 on error.
+int ed25519_windowed_occupancy(int block) {
+  int blocks = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &blocks, ed25519_windowed_verify_kernel, block, 0) != cudaSuccess)
+    return -1;
+  return blocks;
+}
+
+int ed25519_windowed_block(void) { return kBlock; }
+
+int ed25519_windowed_lanes(void) { return kLanes; }
 
 const char *ed25519_windowed_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);

@@ -1,0 +1,89 @@
+// Lane pairs: two adjacent lanes of a warp (an even lane and the odd one
+// above it) run one signature together. Both lanes hold the whole point;
+// each layer of independent field products in a formula is split so that
+// the even lane computes one product of a slot and the odd lane the
+// other, and one __shfl_xor_sync per word hands each result to the
+// partner. Both lanes then run the formula's additions on the same
+// values, so a pair never diverges and no lane waits on shared memory.
+// Every lane of the warp must reach every exchange (no early exit).
+#pragma once
+#include <stdint.h>
+
+#define PAIR_FULL_MASK 0xffffffffu
+
+// o = c ? a : b, word by word (selects, no branch).
+template <class FE>
+__device__ __forceinline__ void fe_pick(FE &o, bool c, const FE &a,
+                                        const FE &b) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i) o.v[i] = c ? a.v[i] : b.v[i];
+}
+
+// The partner lane's m.
+template <class FE>
+__device__ __forceinline__ void pair_other(FE &o, const FE &m) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+    o.v[i] = __shfl_xor_sync(PAIR_FULL_MASK, m.v[i], 1);
+}
+
+// One slot of a layer: r0 = the even lane's m, r1 = the odd lane's m, on
+// both lanes.
+template <class FE>
+__device__ __forceinline__ void pair_share(FE &r0, FE &r1, const FE &m,
+                                           bool odd) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const uint32_t o = __shfl_xor_sync(PAIR_FULL_MASK, m.v[i], 1);
+    r0.v[i] = odd ? o : m.v[i];
+    r1.v[i] = odd ? m.v[i] : o;
+  }
+}
+
+// r0 = a0 * b0 (even lane) and r1 = a1 * b1 (odd lane), on both lanes.
+template <class F>
+__device__ __forceinline__ void pair_mul(typename F::elem &r0,
+                                         typename F::elem &r1,
+                                         const typename F::elem &a0,
+                                         const typename F::elem &b0,
+                                         const typename F::elem &a1,
+                                         const typename F::elem &b1,
+                                         bool odd) {
+  typename F::elem x, y, m;
+  fe_pick(x, odd, a1, a0);
+  fe_pick(y, odd, b1, b0);
+  F::mul(m, x, y);
+  pair_share(r0, r1, m, odd);
+}
+
+// r0 = a0^2 (even lane) and r1 = a1^2 (odd lane), on both lanes.
+template <class F>
+__device__ __forceinline__ void pair_sqr(typename F::elem &r0,
+                                         typename F::elem &r1,
+                                         const typename F::elem &a0,
+                                         const typename F::elem &a1,
+                                         bool odd) {
+  typename F::elem x, m;
+  fe_pick(x, odd, a1, a0);
+  F::sqr(m, x);
+  pair_share(r0, r1, m, odd);
+}
+
+// 16-byte asynchronous copy from global to shared memory (cp.async.cg,
+// cached in L2 only), and the wait for every copy this thread issued.
+__device__ __forceinline__ void cp_async16(void *smem, const void *gmem) {
+#ifdef __CUDACC__
+  const uint32_t s = (uint32_t)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(s),
+               "l"(gmem)
+               : "memory");
+#else
+  memcpy(smem, gmem, 16);
+#endif
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+#ifdef __CUDACC__
+  asm volatile("cp.async.wait_all;" ::: "memory");
+#endif
+}

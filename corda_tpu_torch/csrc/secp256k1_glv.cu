@@ -76,6 +76,9 @@ __global__ void __launch_bounds__(128) secp256k1_glv_verify_kernel(
   ok[i] = (!k1_is_zero(acc.Z) && hit) ? 1 : 0;
 }
 
+// Launch geometry: threads a block, and threads (lanes) a signature.
+static const int kBlock = 128, kLanes = 1;
+
 extern "C" {
 
 // Launches the kernel on ``stream`` and returns cudaGetLastError() (0 on
@@ -84,7 +87,7 @@ int secp256k1_glv_verify(const void *bits4, const void *pts4,
                          const void *r_cands, void *ok, int64_t n,
                          void *stream) {
   if (n <= 0) return 0;
-  const int threads = 128;
+  const int threads = kBlock;
   const int64_t blocks = (n + threads - 1) / threads;
   secp256k1_glv_verify_kernel<<<(unsigned)blocks, threads, 0,
                                 (cudaStream_t)stream>>>(
@@ -92,6 +95,20 @@ int secp256k1_glv_verify(const void *bits4, const void *pts4,
       (const uint16_t *)r_cands, (uint8_t *)ok, n);
   return (int)cudaGetLastError();
 }
+
+// Resident blocks a multiprocessor of the kernel at ``block`` threads a
+// block (cudaOccupancyMaxActiveBlocksPerMultiprocessor), or -1 on error.
+int secp256k1_glv_occupancy(int block) {
+  int blocks = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &blocks, secp256k1_glv_verify_kernel, block, 0) != cudaSuccess)
+    return -1;
+  return blocks;
+}
+
+int secp256k1_glv_block(void) { return kBlock; }
+
+int secp256k1_glv_lanes(void) { return kLanes; }
 
 const char *secp256k1_glv_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);

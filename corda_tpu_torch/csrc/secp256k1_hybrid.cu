@@ -100,6 +100,9 @@ __global__ void __launch_bounds__(128) secp256k1_hybrid_verify_kernel(
   ok[i] = (!k1_is_zero(acc.Z) && hit) ? 1 : 0;
 }
 
+// Launch geometry: threads a block, and threads (lanes) a signature.
+static const int kBlock = 128, kLanes = 1;
+
 extern "C" {
 
 // Launches the kernel on ``stream`` and returns cudaGetLastError() (0 on
@@ -110,7 +113,7 @@ int secp256k1_hybrid_verify(const void *g_idx, const void *q_bits,
                             const void *tab_ok, void *ok, int64_t n,
                             void *stream) {
   if (n <= 0) return 0;
-  const int threads = 128;
+  const int threads = kBlock;
   const int64_t blocks = (n + threads - 1) / threads;
   secp256k1_hybrid_verify_kernel<<<(unsigned)blocks, threads, 0,
                                    (cudaStream_t)stream>>>(
@@ -119,6 +122,20 @@ int secp256k1_hybrid_verify(const void *g_idx, const void *q_bits,
       (const uint16_t *)tab_y, (const uint8_t *)tab_ok, (uint8_t *)ok, n);
   return (int)cudaGetLastError();
 }
+
+// Resident blocks a multiprocessor of the kernel at ``block`` threads a
+// block (cudaOccupancyMaxActiveBlocksPerMultiprocessor), or -1 on error.
+int secp256k1_hybrid_occupancy(int block) {
+  int blocks = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &blocks, secp256k1_hybrid_verify_kernel, block, 0) != cudaSuccess)
+    return -1;
+  return blocks;
+}
+
+int secp256k1_hybrid_block(void) { return kBlock; }
+
+int secp256k1_hybrid_lanes(void) { return kLanes; }
 
 const char *secp256k1_hybrid_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);

@@ -76,6 +76,9 @@ __global__ void __launch_bounds__(128) shamir_verify_kernel(
   ok[i] = (!C::is_zero(acc.Z) && hit) ? 1 : 0;
 }
 
+// Launch geometry: threads a block, and threads (lanes) a signature.
+static const int kBlock = 128, kLanes = 1;
+
 extern "C" {
 
 // Launches the kernel of ``curve`` (0 secp256k1, 1 secp256r1) on
@@ -86,7 +89,7 @@ int weierstrass_shamir_verify(const void *u1_bits, const void *u2_bits,
                               const void *q_pts, const void *r_cands,
                               void *ok, int64_t n, int curve, void *stream) {
   if (n <= 0) return 0;
-  const int threads = 128;
+  const int threads = kBlock;
   const unsigned blocks = (unsigned)((n + threads - 1) / threads);
   cudaStream_t s = (cudaStream_t)stream;
   const uint8_t *b1 = (const uint8_t *)u1_bits;
@@ -103,6 +106,23 @@ int weierstrass_shamir_verify(const void *u1_bits, const void *u2_bits,
     return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }
+
+// Resident blocks a multiprocessor of ``curve``'s kernel (0 secp256k1,
+// 1 secp256r1) at ``block`` threads a block
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor), or -1 on error.
+int weierstrass_shamir_occupancy(int block, int curve) {
+  int blocks = 0;
+  cudaError_t rc = curve == 0
+      ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &blocks, shamir_verify_kernel<K1Curve>, block, 0)
+      : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &blocks, shamir_verify_kernel<P256Curve>, block, 0);
+  return rc == cudaSuccess ? blocks : -1;
+}
+
+int weierstrass_shamir_block(void) { return kBlock; }
+
+int weierstrass_shamir_lanes(void) { return kLanes; }
 
 const char *weierstrass_shamir_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);

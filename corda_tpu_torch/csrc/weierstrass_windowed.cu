@@ -117,6 +117,9 @@ __global__ void __launch_bounds__(128) windowed_verify_kernel(
   ok[i] = (!C::is_zero(acc.Z) && hit) ? 1 : 0;
 }
 
+// Launch geometry: threads a block, and threads (lanes) a signature.
+static const int kBlock = 128, kLanes = 1;
+
 extern "C" {
 
 // Launches the kernel of ``curve`` (0 secp256k1, 1 secp256r1) on
@@ -130,7 +133,7 @@ int weierstrass_windowed_verify(const void *g_idx, const void *q_digits,
                                 const void *tab_ok, void *ok, int64_t n,
                                 int curve, void *stream) {
   if (n <= 0) return 0;
-  const int threads = 128;
+  const int threads = kBlock;
   const unsigned blocks = (unsigned)((n + threads - 1) / threads);
   cudaStream_t s = (cudaStream_t)stream;
 #define WINDOWED_ARGS                                                      \
@@ -148,6 +151,23 @@ int weierstrass_windowed_verify(const void *g_idx, const void *q_digits,
 #undef WINDOWED_ARGS
   return (int)cudaGetLastError();
 }
+
+// Resident blocks a multiprocessor of ``curve``'s kernel (0 secp256k1,
+// 1 secp256r1) at ``block`` threads a block
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor), or -1 on error.
+int weierstrass_windowed_occupancy(int block, int curve) {
+  int blocks = 0;
+  cudaError_t rc = curve == 0
+      ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &blocks, windowed_verify_kernel<K1Curve>, block, 0)
+      : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &blocks, windowed_verify_kernel<P256Curve>, block, 0);
+  return rc == cudaSuccess ? blocks : -1;
+}
+
+int weierstrass_windowed_block(void) { return kBlock; }
+
+int weierstrass_windowed_lanes(void) { return kLanes; }
 
 const char *weierstrass_windowed_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);

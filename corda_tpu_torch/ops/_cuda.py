@@ -3,7 +3,7 @@
 Every kernel library in ``csrc/`` exposes a plain C launcher that takes device
 pointers, a count and a CUDA stream and returns ``cudaGetLastError()``, and
 ``<prefix>_error_string`` naming a CUDA error. The verify kernels share one
-launcher shape, ``<target>_verify(ptrs..., ok, n, [curve id,] stream)``;
+launcher shape, ``<target>_verify(ptrs..., ok, n, [curve id or lanes,] stream)``;
 ``bind_verify`` and ``launch_verify`` bind and call it. A refused launch
 raises :class:`_build.LaunchError` and a failed build
 :class:`_build.BuildError`; neither is ever answered by running the work
@@ -18,16 +18,17 @@ import torch
 from .. import _build
 
 
-def bind_verify(target: str, n_ptrs: int, with_curve: bool = False):
+def bind_verify(target: str, n_ptrs: int, with_int: bool = False):
     """Build (at first use) and bind a verify kernel's library: its C
     launcher ``<target>_verify`` takes ``n_ptrs`` device pointers, the
-    verdict pointer, n, (the curve id, for the two-curve kernels) and the
-    stream. Raises :class:`BuildError` when the library cannot be built."""
+    verdict pointer, n, (with ``with_int``, an int: the curve id of the
+    two-curve kernels, the lanes a signature of B2) and the stream. Raises
+    :class:`BuildError` when the library cannot be built."""
     lib = _build.load(target)
     fn = getattr(lib, f"{target}_verify")
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * (n_ptrs + 1) + [ctypes.c_int64]
-                   + [ctypes.c_int] * with_curve + [ctypes.c_void_p])
+                   + [ctypes.c_int] * with_int + [ctypes.c_void_p])
     bind_error_string(lib, target)
     return lib
 
@@ -64,15 +65,51 @@ def check_args(spec, args, device: torch.device) -> None:
 
 
 def launch_verify(lib, fn_name: str, args, n: int, device,
-                  curve_id: int | None = None) -> torch.Tensor:
+                  int_arg: int | None = None) -> torch.Tensor:
     """Run the C launcher ``<prefix>_verify`` on the current stream of
-    ``device`` (passing ``curve_id`` after n for the two-curve kernels);
-    returns ok (n,) bool without synchronising, or raises LaunchError."""
+    ``device`` (passing ``int_arg`` after n: the curve id of the two-curve
+    kernels, the lanes a signature of B2); returns ok (n,) bool without
+    synchronising, or raises LaunchError."""
     ok = torch.empty(n, dtype=torch.bool, device=device)
-    curve = () if curve_id is None else (curve_id,)
+    extra = () if int_arg is None else (int_arg,)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = getattr(lib, fn_name)(*(t.data_ptr() for t in args),
-                                   ok.data_ptr(), n, *curve, stream)
+                                   ok.data_ptr(), n, *extra, stream)
     raise_on_error(lib, fn_name.removesuffix("_verify"), rc, fn_name)
     return ok
+
+
+def split_lanes(lib, n: int) -> int:
+    """Lanes a signature B2's launcher is given for an ``n``-item batch
+    (``ed25519_split_lanes``: lane pairs up to its threshold, else one)."""
+    fn = lib.ed25519_split_lanes
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int64]
+    return fn(n)
+
+
+def geometry(target: str, n: int, curve_id: int | None = None) -> dict:
+    """Launch geometry of the verify kernel of library ``target`` for an
+    ``n``-item batch (of the curve ``curve_id`` for the two-curve kernels):
+    threads a block, lanes (threads) a signature, and the blocks of that
+    size one multiprocessor holds at once (``<target>_occupancy``, the CUDA
+    occupancy calculator, registers and shared memory included)."""
+    lib = _build.load(target)
+    block = getattr(lib, f"{target}_block")()
+    occ = getattr(lib, f"{target}_occupancy")
+    if target == "ed25519_split":
+        lanes = split_lanes(lib, n)
+        occ.argtypes = [ctypes.c_int, ctypes.c_int]
+        blocks = occ(block, lanes)
+    else:
+        lanes = getattr(lib, f"{target}_lanes")()
+        if curve_id is None:
+            occ.argtypes = [ctypes.c_int]
+            blocks = occ(block)
+        else:
+            occ.argtypes = [ctypes.c_int, ctypes.c_int]
+            blocks = occ(block, curve_id)
+    if blocks < 0:
+        raise _build.LaunchError(f"{target}_occupancy failed")
+    return {"block": block, "lanes": lanes, "blocks_per_sm": blocks}

@@ -327,9 +327,17 @@ _LAUNCH_LOCK = threading.Lock()
 
 @functools.lru_cache(maxsize=1)
 def load_kernel():
-    """The split-k kernel's library, built from ``csrc/`` at first use.
-    Raises :class:`BuildError` when it cannot be built."""
-    return cu.bind_verify("ed25519_split", 10)
+    """The split-k kernel's library, built from ``csrc/`` at first use and
+    held against the plain version on known answers on the current CUDA
+    device (:mod:`.known_answers`). Raises :class:`BuildError` when it
+    cannot be built or gives a wrong answer."""
+    from . import known_answers
+    lib = cu.bind_verify("ed25519_split", 10, with_int=True)
+    device = torch.device("cuda", torch.cuda.current_device())
+    known_answers.check_ed25519_split(
+        lambda args, n, lanes: cu.launch_verify(
+            lib, "ed25519_split_verify", args, n, device, lanes), device)
+    return lib
 
 
 def verify_core_split_cuda(bb_idx, a_packed, rows, r_packed,
@@ -348,10 +356,13 @@ def verify_core_split_cuda(bb_idx, a_packed, rows, r_packed,
             ("r_packed", torch.uint16, (n, F.NLIMB)),
             *((f"table {k}", torch.uint16, table) for k in range(6)))
     cu.check_args(spec, args, bb_idx.device)
-    ok = cu.launch_verify(load_kernel(), "ed25519_split_verify", args, n,
-                          bb_idx.device)
+    lib = load_kernel()
+    lanes = cu.split_lanes(lib, n)
+    ok = cu.launch_verify(lib, "ed25519_split_verify", args, n,
+                          bb_idx.device, lanes)
     with _LAUNCH_LOCK:
         verify_core_split.launches += 1
+        verify_core_split.launches_by_lanes[lanes] += 1
     return ok
 
 
@@ -379,8 +390,10 @@ def verify_core_split(bb_idx, a_packed, rows, r_packed,
     raise ValueError(f"unsupported device {bb_idx.device}")
 
 
-#: Kernel launches through the wrapper (the CPU path launches nothing).
+#: Kernel launches through the wrapper (the CPU path launches nothing), in
+#: all and by lanes a signature: 1 the one-lane kernel, 2 the lane pairs.
 verify_core_split.launches = 0
+verify_core_split.launches_by_lanes = {1: 0, 2: 0}
 verify_core_split.build_count = lambda: _build.build_count("ed25519_split")
 
 

@@ -1,0 +1,135 @@
+"""Known answers for freshly loaded signature kernels (B2, B4).
+
+The kernels are compiled at first use by the toolkit of the machine that runs
+them. Before a B2 or B4 library gives its first verdict in a process, a fixed
+batch runs through every kernel behind its launcher (B2 on one lane and on lane
+pairs, B4 on lane pairs) and through the kernel's plain PyTorch version on the
+CPU. The batch holds valid signatures, tampered ones, and items whose host
+precheck fails, whose wire rows the prep zeroes or fills with placeholders. The
+raw verdicts (before the precheck mask) must agree on every row, or the library
+is refused with :class:`BuildError`. The lane-pair kernels run on the Comba
+field, which was exact in every build tried; large one-thread kernels on the
+same field were miscompiled in some builds for a reason not yet found
+(PERF.md §7), so no build gives verdicts unchecked.
+
+The batches are made from fixed seeds with the package's own signing code.
+"""
+from __future__ import annotations
+
+import functools
+import hashlib
+
+import torch
+
+from .. import _build
+from ..core.crypto import ecmath
+from . import ed25519 as ed
+from . import weierstrass as wc
+
+
+def _seeded(tag: bytes, i: int) -> bytes:
+    return hashlib.sha256(tag + i.to_bytes(4, "little")).digest()
+
+
+#: Kinds of the Ed25519 batch, in order: valid, a flipped s bit, a flipped
+#: message bit, the wrong key, s >= L, a flipped R sign bit, R y >= p, an
+#: undecodable key, an undecodable R (y = 2), a short signature, valid.
+ED_KINDS = 11
+
+
+@functools.lru_cache(maxsize=1)
+def ed25519_items() -> tuple:
+    """Two rounds of the ED_KINDS kinds: 22 (pub, sig, msg) items."""
+    items = []
+    for i in range(2 * ED_KINDS):
+        sk = _seeded(b"ed25519 key", i)
+        pub = ecmath.ed25519_public_key(sk)
+        msg = _seeded(b"ed25519 message", i)[:20 + i % 13]
+        sig = ecmath.ed25519_sign(sk, msg, pub)
+        kind = i % ED_KINDS
+        if kind == 1:
+            sig = sig[:40] + bytes([sig[40] ^ 1]) + sig[41:]
+        elif kind == 2:
+            msg = msg[:-1] + bytes([msg[-1] ^ 1])
+        elif kind == 3:
+            pub = ecmath.ed25519_public_key(_seeded(b"ed25519 other", i))
+        elif kind == 4:
+            s = int.from_bytes(sig[32:], "little") + ecmath.ED_L
+            sig = sig[:32] + s.to_bytes(32, "little")
+        elif kind == 5:
+            sig = sig[:31] + bytes([sig[31] ^ 0x80]) + sig[32:]
+        elif kind == 6:
+            sig = (2**255 - 10).to_bytes(32, "little") + sig[32:]
+        elif kind == 7:
+            pub = b"\xff" * 32
+        elif kind == 8:
+            sig = (2).to_bytes(32, "little") + sig[32:]
+        elif kind == 9:
+            sig = sig[:63]
+        items.append((pub, sig, msg))
+    return tuple(items)
+
+
+@functools.lru_cache(maxsize=1)
+def r1_items() -> tuple:
+    """secp256r1 (pub, msg, r, s) items: four valid signatures; the first
+    one tampered (message, s) and with a failing precheck (no key, an
+    off-curve key, r = 0, r >= n, s = 0, high s); valid signatures under
+    the keys G and -G (G + Q = 2G, and the point at infinity)."""
+    curve = ecmath.SECP256R1
+    items = []
+    for i, priv in enumerate([int.from_bytes(_seeded(b"p256 key", i), "big")
+                              % (curve.n - 1) + 1 for i in range(4)]
+                             + [1, curve.n - 1]):
+        msg = _seeded(b"p256 message", i)
+        items.append((curve.mul(priv, curve.g), msg,
+                      *ecmath.ecdsa_sign(curve, priv, msg)))
+    pub, msg, r, s = items[0]
+    items += [(pub, msg + b"!", r, s),
+              (pub, msg, r, s * 3 % curve.n),
+              (None, msg, r, s),
+              ((pub[0], (pub[1] + 1) % curve.p), msg, r, s),
+              (pub, msg, 0, s),
+              (pub, msg, r + curve.n, s),
+              (pub, msg, r, 0),
+              (pub, msg, r, curve.n - s)]
+    return tuple(items)
+
+
+def _held(target: str, what: str, got: torch.Tensor,
+          want: torch.Tensor) -> None:
+    bad = int((got.cpu() != want).sum())
+    if bad:
+        raise _build.BuildError(
+            f"{target}: the built kernel ({what}) disagrees with its plain "
+            f"version on {bad} of {want.numel()} known-answer rows; the "
+            "library is not used")
+
+
+def check_ed25519_split(launch, device) -> None:
+    """Hold B2 against its plain version on :func:`ed25519_items`:
+    ``launch(args, n, lanes)`` runs the kernel on ``lanes`` lanes a
+    signature and returns its raw verdicts; raises BuildError on any
+    difference."""
+    items = ed25519_items()
+    *wire, _ = ed.prepare_batch_split(list(items))
+    tabs = ed.split_tables(device)
+    want = ed.verify_core_split_plain(
+        *ed.wire_to_device(*wire, device="cpu"), *(t.cpu() for t in tabs))
+    args = (*ed.wire_to_device(*wire, device=device), *tabs)
+    for lanes in (1, 2):
+        _held("ed25519_split", f"{lanes} lane(s) a signature",
+              launch(args, len(items), lanes), want)
+
+
+def check_r1_split(launch, device) -> None:
+    """Hold B4 against its plain version on :func:`r1_items`:
+    ``launch(args, n)`` returns the kernel's raw verdicts; raises
+    BuildError on any difference."""
+    items = r1_items()
+    *wire, _, _ = wc.prepare_batch_r1_split(ecmath.SECP256R1, list(items))
+    tabs = wc.r1_split_tables(device)
+    want = wc.verify_core_r1_split_plain(
+        *wc.wire_to_device(wire, "cpu"), *(t.cpu() for t in tabs))
+    args = (*wc.wire_to_device(wire, device), *tabs)
+    _held("secp256r1_split", "lane pairs", launch(args, len(items)), want)

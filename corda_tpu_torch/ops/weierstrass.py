@@ -844,9 +844,17 @@ def verify_core_r1_split_plain(g_idx, q_digits, q_x, q_y, xd_limbs,
 
 @functools.lru_cache(maxsize=1)
 def load_r1_split_kernel():
-    """The split kernel's library, built from ``csrc/`` at first use.
-    Raises :class:`BuildError` when it cannot be built."""
-    return cu.bind_verify("secp256r1_split", 11)
+    """The split kernel's library, built from ``csrc/`` at first use and
+    held against the plain version on known answers on the current CUDA
+    device (:mod:`.known_answers`). Raises :class:`BuildError` when it
+    cannot be built or gives a wrong answer."""
+    from . import known_answers
+    lib = cu.bind_verify("secp256r1_split", 11)
+    device = torch.device("cuda", torch.cuda.current_device())
+    known_answers.check_r1_split(
+        lambda args, n: cu.launch_verify(lib, "secp256r1_split_verify", args,
+                                         n, device), device)
+    return lib
 
 
 def verify_core_r1_split_cuda(g_idx, q_digits, q_x, q_y, xd_limbs,
@@ -932,7 +940,7 @@ def verify_core_plain(u1_bits, u2_bits, q_pts, r_cands,
 def load_shamir_kernel():
     """The Shamir kernel's library (both curves), built from ``csrc/`` at
     first use. Raises :class:`BuildError` when it cannot be built."""
-    return cu.bind_verify("weierstrass_shamir", 4, with_curve=True)
+    return cu.bind_verify("weierstrass_shamir", 4, with_int=True)
 
 
 def verify_core_cuda(u1_bits, u2_bits, q_pts, r_cands,
@@ -1054,7 +1062,7 @@ def verify_core_windowed_single_plain(g_idx, q_digits, q_x, q_y, r_limbs,
 def load_windowed_kernel():
     """The windowed kernel's library (both curves), built from ``csrc/`` at
     first use. Raises :class:`BuildError` when it cannot be built."""
-    return cu.bind_verify("weierstrass_windowed", 9, with_curve=True)
+    return cu.bind_verify("weierstrass_windowed", 9, with_int=True)
 
 
 def verify_core_windowed_single_cuda(g_idx, q_digits, q_x, q_y, r_limbs,

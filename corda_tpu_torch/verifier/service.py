@@ -22,7 +22,6 @@ from concurrent.futures import Future, ThreadPoolExecutor
 
 from ..core.crypto.signatures import SignatureException
 from ..core.transactions.signed import SignaturesMissingException
-from ..device import DEFAULT_DEVICE
 from ..observability import get_tracer
 from ..utils.metrics import MetricRegistry
 from .batcher import SignatureBatcher
@@ -110,10 +109,12 @@ class TpuTransactionVerifierService(TransactionVerifierService):
 
     def __init__(self, workers: int = 4, batcher: SignatureBatcher | None = None,
                  metrics: MetricRegistry | None = None, mesh=None,
-                 device=DEFAULT_DEVICE):
+                 device=None):
         self.metrics = metrics if metrics is not None else MetricRegistry()
-        # device: where the batcher's kernels run (default "cuda", which
-        # raises without CUDA); mesh= is not ported yet and raises
+        # mesh: shard every device batch over the mesh's devices
+        # (corda_tpu_torch.parallel); device: the one device the batcher's
+        # kernels run on otherwise (None: DEFAULT_DEVICE, "cuda", which
+        # raises without CUDA). Pass one of them, not both.
         self.batcher = batcher if batcher is not None else SignatureBatcher(
             metrics=self.metrics, mesh=mesh, device=device)
         self._pool = ThreadPoolExecutor(max_workers=workers,

@@ -629,3 +629,161 @@ def test_mesh_batcher_on_the_card(cuda):
     snap = b.metrics.snapshot()
     assert snap["SigBatcher.DeviceChecked"]["count"] == len(checks)
     assert "SigBatcher.BatchFailure" not in snap
+
+
+# -- B2 and B4 on lane pairs: ragged edges and rejected rows ----------------
+
+RAGGED = [1, 31, 33, 4095, 4097]
+
+
+def _tile_wire(wire, axes, n):
+    """The first ``n`` items of prepped wire arrays, tiled past their
+    length along each array's batch axis."""
+    return [np.ascontiguousarray(np.take(a, np.arange(n) % a.shape[ax],
+                                         axis=ax))
+            for a, ax in zip(wire, axes)]
+
+
+def _r1_adversarial(seed):
+    """secp256r1 items whose precheck fails (no key, off-curve key, r = 0,
+    r >= n, high s), tampered ones, a half-gcd host fallback, keys G and -G
+    and valid signatures. Returns (items, oracle verdicts)."""
+    curve = ecmath.SECP256R1
+    rng = np.random.default_rng(seed)
+    items = list(_ecdsa_items(curve, 12, seed))
+    for kind in range(16):
+        priv = (1 if kind == 8 else curve.n - 1 if kind == 9 else
+                int.from_bytes(rng.bytes(32), "little") % (curve.n - 1) + 1)
+        pub = curve.mul(priv, curve.g)
+        msg = rng.bytes(20 + kind)
+        r, s = ecmath.ecdsa_sign(curve, priv, msg)
+        if kind == 1:
+            pub = None
+        elif kind == 2:
+            pub = (pub[0], (pub[1] + 1) % curve.p)
+        elif kind == 3:
+            r = 0
+        elif kind == 4:
+            r = r + curve.n
+        elif kind == 5:
+            s = curve.n - s
+        elif kind == 6:
+            msg += b"?"
+        items.append((pub, msg, r, s))
+    want = [pub is not None and ecmath.ecdsa_verify(curve, pub, msg, r, s)
+            for pub, msg, r, s in items]
+    return items, want
+
+
+@pytest.mark.parametrize("n", RAGGED)
+def test_b2_lane_pairs_match_plain_version_at_ragged_sizes(cuda, n):
+    """B2 runs two lanes a signature on these batch sizes; lanes past the
+    last item recompute it and store nothing. Raw verdicts (before the
+    precheck mask) equal the plain version's on every lane, rejected rows
+    included."""
+    from corda_tpu_torch.ops import _cuda
+    from corda_tpu_torch.ops import ed25519 as ed
+    items, want = _ed_adversarial(44, 90)
+    *wire, precheck = ed.prepare_batch_split(items)
+    assert not precheck.all()
+    wire = _tile_wire(wire, (1, 2, 0, 0), n)
+    args = ed.wire_to_device(*wire, device=cuda)
+    tabs = ed.split_tables(cuda)
+    ok = ed.verify_core_split(*args, *tabs)
+    torch.cuda.synchronize()
+    assert torch.equal(ok.cpu(), ed.verify_core_split_plain(*args,
+                                                            *tabs).cpu())
+    idx = np.arange(n) % len(items)
+    assert list(ok.cpu().numpy() & precheck[idx]) == [want[i] for i in idx]
+    assert _cuda.geometry("ed25519_split", n)["lanes"] == 2
+
+
+@pytest.mark.parametrize("n", RAGGED)
+def test_b4_lane_pairs_match_plain_version_at_ragged_sizes(cuda, n):
+    """B4 on lane pairs at ragged sizes, raw verdicts against the plain
+    version, precheck-failed and host-fallback rows included."""
+    from corda_tpu_torch.ops import _cuda
+    from corda_tpu_torch.ops import weierstrass as wc
+    items, want = _r1_adversarial(91)
+    *wire, precheck, forced = wc.prepare_batch_r1_split(ecmath.SECP256R1,
+                                                        items)
+    assert not precheck.all() and forced.any()
+    wire = _tile_wire(wire, (2, 2, 0, 0, 0), n)
+    args = [torch.from_numpy(a).to(cuda) for a in wire]
+    tabs = wc.r1_split_tables(cuda)
+    ok = wc.verify_core_r1_split(*args, *tabs)
+    torch.cuda.synchronize()
+    assert torch.equal(ok.cpu(), wc.verify_core_r1_split_plain(*args,
+                                                               *tabs).cpu())
+    idx = np.arange(n) % len(items)
+    got = (ok.cpu().numpy() & precheck[idx]) | forced[idx]
+    assert list(got) == [want[i] for i in idx]
+    assert _cuda.geometry("secp256r1_split", n)["lanes"] == 2
+
+
+def test_b2_large_batches_run_one_lane_a_signature(cuda):
+    """Above the pair threshold B2 runs one lane a signature; that kernel
+    too equals the plain version bit for bit, raw, and the wrapper counts
+    the launch under its lanes."""
+    from corda_tpu_torch.ops import _cuda
+    from corda_tpu_torch.ops import ed25519 as ed
+    n = next(k for k in (8193, 16385, 32769)
+             if _cuda.geometry("ed25519_split", k)["lanes"] == 1)
+    assert _cuda.geometry("ed25519_split", 1)["lanes"] == 2
+    items, _ = _ed_adversarial(44, 92)
+    *wire, _ = ed.prepare_batch_split(items)
+    args = ed.wire_to_device(*_tile_wire(wire, (1, 2, 0, 0), n), device=cuda)
+    tabs = ed.split_tables(cuda)
+    before = dict(ed.verify_core_split.launches_by_lanes)
+    ok = ed.verify_core_split(*args, *tabs)
+    ed.verify_core_split(*ed.wire_to_device(
+        *_tile_wire(wire, (1, 2, 0, 0), 1024), device=cuda), *tabs)
+    torch.cuda.synchronize()
+    assert torch.equal(ok.cpu(), ed.verify_core_split_plain(*args,
+                                                            *tabs).cpu())
+    after = ed.verify_core_split.launches_by_lanes
+    assert (after[1] - before[1], after[2] - before[2]) == (1, 1)
+
+
+def test_b4_runs_lane_pairs_at_every_size(cuda):
+    """B4 has one kernel, on lane pairs, at every batch size; at 32768
+    items it equals the plain version bit for bit, raw."""
+    from corda_tpu_torch.ops import _cuda
+    from corda_tpu_torch.ops import weierstrass as wc
+    assert {_cuda.geometry("secp256r1_split", k)["lanes"]
+            for k in (1, 16385, 32768)} == {2}
+    items, _ = _r1_adversarial(93)
+    *wire, _, _ = wc.prepare_batch_r1_split(ecmath.SECP256R1, items)
+    args = [torch.from_numpy(a).to(cuda)
+            for a in _tile_wire(wire, (2, 2, 0, 0, 0), 32768)]
+    tabs = wc.r1_split_tables(cuda)
+    ok = wc.verify_core_r1_split(*args, *tabs)
+    torch.cuda.synchronize()
+    assert torch.equal(ok.cpu(), wc.verify_core_r1_split_plain(*args,
+                                                               *tabs).cpu())
+
+
+@pytest.mark.parametrize("target", ["ed25519_split", "secp256r1_split"])
+def test_a_library_that_fails_its_known_answers_is_refused(
+        cuda, monkeypatch, target):
+    """A freshly loaded B2 or B4 library whose raw verdicts differ from the
+    plain version's on the known-answer batch raises BuildError and gives
+    no verdict (here the plain version is made to disagree)."""
+    from corda_tpu_torch import _build
+    from corda_tpu_torch.ops import ed25519 as ed
+    from corda_tpu_torch.ops import weierstrass as wc
+    if target == "ed25519_split":
+        mod, plain, load = ed, "verify_core_split_plain", ed.load_kernel
+    else:
+        mod, plain, load = wc, "verify_core_r1_split_plain", \
+            wc.load_r1_split_kernel
+    real = getattr(mod, plain)
+    monkeypatch.setattr(mod, plain, lambda *a: ~real(*a))
+    load.cache_clear()
+    try:
+        with pytest.raises(_build.BuildError, match="known-answer"):
+            load()
+    finally:
+        monkeypatch.undo()
+        load.cache_clear()
+    load()

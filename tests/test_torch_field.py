@@ -111,7 +111,9 @@ def _header_words(header: str):
 
 def test_cuda_header_constants_match_ecmath():
     """The device headers' constant words are the host constants: 2d and
-    p of edwards25519, p and n of secp256k1, p and b of P-256."""
+    p of edwards25519, p and n of secp256k1, p and b of P-256, in the
+    one-thread fields and in the pair kernels' Comba fields (with
+    2^256 - p of P-256)."""
     from corda_tpu_torch.core.crypto import ecmath
     words = _header_words("field25519.cuh")
     assert words("FE_D2") == ecmath.ED_D2
@@ -122,6 +124,13 @@ def test_cuda_header_constants_match_ecmath():
     words = _header_words("field_p256.cuh")
     assert words("P256_P") == ecmath.SECP256R1.p == TF.PSECR1
     assert words("P256_B") == ecmath.SECP256R1.b
+    words = _header_words("field_p256_comba.cuh")
+    assert words("P256_P") == ecmath.SECP256R1.p
+    assert words("P256_B") == ecmath.SECP256R1.b
+    assert words("P256_C") == (1 << 256) - ecmath.SECP256R1.p
+    words = _header_words("field25519_comba.cuh")
+    assert words("FE_D2") == ecmath.ED_D2
+    assert words("FE_P") == P
 
 
 def _edges(p):

@@ -29,9 +29,10 @@ Phases (any failure exits non-zero; nothing is caught):
              construction; CUDA-event medians of both versions, the
              card's least time for the same work, and each launch's lanes
              a signature and warps a multiprocessor (B2 runs lane pairs up
-             to 16384 items, one lane above; B4 lane pairs at every size).
-             A freshly loaded B2 or B4 library has also been held against
-             its plain version on known answers (ops/known_answers.py).
+             to 16384 items, one lane above; B3, B4 and B8 Shamir run lane
+             pairs at every size). A freshly loaded B2, B3, B4 or B8
+             Shamir library has also been held against its plain version
+             on known answers (ops/known_answers.py).
              Then B10 (SIMM margin)
              on the demo book and seeded books of 1024, 2^16 and 2^20
              trades: equal to its plain version bit for bit (and so within
@@ -49,7 +50,8 @@ Phases (any failure exits non-zero; nothing is caught):
              to hashlib.
 3. modes   — weierstrass.verify_batch for every (curve, mode) on 32768
              items (1/16 tampered): secp256k1 hybrid, windowed, plain and
-             glv, secp256r1 halfgcd, windowed and plain. One warm-up pass,
+             glv, secp256r1 halfgcd, windowed and plain (plain once more
+             on 1024 items, for B8 Shamir's 1024 rows). One warm-up pass,
              two timed passes in turns (secp256r1: halfgcd, windowed,
              windowed, halfgcd); verdicts equal to the construction and
              exactly the mode's kernel launched in every run (counts set to
@@ -106,12 +108,12 @@ Phases (any failure exits non-zero; nothing is caught):
              recording device activity for the rest of a process).
 8. ab      — only with --ab PARENT (a directory holding an earlier commit's
              corda_tpu_torch/csrc, e.g. unpacked by git archive): that
-             commit's B2 and B4 kernels built beside this checkout's and
-             timed on the same inputs in turns (B2 also on each lane count)
-             after a raw bit-identity check, and the interactive 1k latency
-             of the Ed25519 and secp256r1 service paths with the parent's
-             kernels behind the wrappers and with this checkout's, in
-             turns (parent, change, change, parent).
+             commit's B3 and B8 Shamir kernels built beside this
+             checkout's and timed on the same inputs in turns at 256 to
+             32768 items (B8 for each curve) after a raw bit-identity
+             check, and the interactive 1k latency of the secp256k1
+             service path with the parent's B3 behind the wrapper and with
+             this checkout's, in turns (parent, change, change, parent).
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. ``--only-kernels`` runs phases 1 and 2 only,
@@ -156,11 +158,12 @@ def imad_per_sig(products: int, squarings: int, fold: int) -> int:
 #: B2 (csrc/ed25519_split.cu): 1303 products, 766 squarings; wire arrays
 #: bb_idx 64, a_packed 64, rows 192, r_packed 32 and the verdict, plus the
 #: six Niels tables once. ``design_imad``: what a kernel's design issues
-#: where it differs from the bound's count, by lanes a signature (B2 and B4
-#: on lane pairs run some products on both lanes: 1406 products and 1020
-#: squarings for B2, 2330 and 262 for B4; B2's one-lane kernel squares
-#: with a full product: 2069 products); the bound keeps the reference's
-#: count, so the rows stay comparable across designs.
+#: where it differs from the bound's count, by lanes a signature (B2, B3,
+#: B4 and B8 r1 on lane pairs run some products on both lanes: 1406
+#: products and 1020 squarings for B2, 1850 and 256 for B3, 2330 and 262
+#: for B4, 6672 and 512 for B8 r1; B2's one-lane kernel squares with a
+#: full product: 2069 products); the bound keeps the reference's count, so
+#: the rows stay comparable across designs.
 #: B3 (csrc/secp256k1_hybrid.cu): 1823 products, 256 squarings; wire g_idx
 #: 64, q_bits 64, pts 128, r_limbs 32 and the verdict, plus each distinct
 #: G-table row gathered (x 32 + y 32 + flag 1 bytes).
@@ -188,6 +191,7 @@ KERNELS = {
         "replaces": "corda_tpu/ops/ed25519.py:346", "lib": "ed25519_split"},
     "secp256k1_hybrid_verify": {
         "imad": imad_per_sig(1823, 256, 8), "wire": 64 + 64 + 128 + 32 + 1,
+        "design_imad": {2: imad_per_sig(1850, 256, 8)},
         "source": "corda_tpu_torch/csrc/secp256k1_hybrid.cu",
         "replaces": "corda_tpu/ops/weierstrass.py:1276",
         "lib": "secp256k1_hybrid"},
@@ -216,6 +220,7 @@ KERNELS = {
         "lib": "weierstrass_shamir", "curve": "secp256k1", "mode": "plain"},
     "secp256r1_shamir_verify": {
         "imad": imad_per_sig(6160, 768, 0), "wire": 512 + 96 + 64 + 1,
+        "design_imad": {2: imad_per_sig(6672, 512, 0)},
         "source": "corda_tpu_torch/csrc/weierstrass_shamir.cu",
         "replaces": "corda_tpu/ops/weierstrass.py:1435",
         "lib": "weierstrass_shamir", "curve": "secp256r1", "mode": "plain"},
@@ -236,12 +241,24 @@ KERNELS = {
         "replaces": "corda_tpu/ops/ed25519.py:238",
         "lib": "ed25519_windowed", "ladder": "windowed"},
 }
-#: Rows of the kernels line beside KERNELS': a second kernel of a library,
-#: read at the bucket that runs it — B2's lane pairs (the interactive 1024
-#: bucket; the ``ed25519_split_verify`` row is its one-lane kernel at
-#: 32768), with launches by lanes a signature.
-PAIR_ROWS = {"ed25519_split_verify_pairs": ("ed25519_split_verify", 1024)}
-#: --ab: the buckets of the kernel A/B, and the order of its turns.
+#: Rows of the kernels line beside KERNELS' (read at 32768): lane-pair
+#: kernels read at the interactive 1024 bucket — B2's pairs (the
+#: ``ed25519_split_verify`` row is its one-lane kernel), with launches by
+#: lanes a signature, and B3 and B8 Shamir (pairs at every size), with the
+#: launches of their paths' 1024-item batches.
+PAIR_ROWS = {"ed25519_split_verify_pairs": ("ed25519_split_verify", 1024),
+             **{f"{name}_1024": (name, 1024)
+                for name in ("secp256k1_hybrid_verify",
+                             "secp256k1_shamir_verify",
+                             "secp256r1_shamir_verify")}}
+#: The verify_batch modes that the modes phase also runs on MODE_SMALL
+#: items, for their kernels' 1024 rows.
+SMALL_MODES = ("plain",)
+MODE_SMALL = 1024
+#: --ab: the libraries an earlier commit's kernels are built from (their
+#: launchers' wire pointers; the Shamir launcher also takes a curve id),
+#: the buckets of the kernel A/B, and the order of its turns.
+AB_LIBS = {"secp256k1_hybrid": 7, "weierstrass_shamir": 4}
 AB_BUCKETS = (256, 1024, 4096, 16384, 32768)
 AB_TURNS = ("parent", "change", "change", "parent")
 #: The B7 kernels: an adversarial batch of B7_DISTINCT signed items (1/16
@@ -709,9 +726,11 @@ def modes_phase(wc, dev, ec_base, seed: int, card, per_kernel) -> tuple:
     reversed: the secp256r1 routes run halfgcd, windowed, windowed,
     halfgcd); every run's verdicts must equal the construction and exactly
     the mode's kernel must have launched (counts set to 0 just before the
-    run and read just after). The prep alone is timed once more, and the
-    two secp256r1 routes run once more under torch.profiler for the card's
-    idle share. Returns (results, launches by kernel name)."""
+    run and read just after). The modes of SMALL_MODES run once more on
+    MODE_SMALL items (counted under ``<kernel>_<MODE_SMALL>``). The prep
+    alone is timed once more, and the two secp256r1 routes run once more
+    under torch.profiler for the card's idle share. Returns (results,
+    launches by kernel name)."""
     import numpy as np
     data = {}
     for k, name in enumerate(("secp256k1", "secp256r1")):
@@ -725,8 +744,9 @@ def modes_phase(wc, dev, ec_base, seed: int, card, per_kernel) -> tuple:
                  **MODE_KERNELS}
     wrappers = {n: kernel_wrapper(wc, n) for n in kernel_of.values()}
 
-    def run(curve_name: str, mode: str) -> tuple[float, int]:
-        items, want = data[curve_name]
+    def run(curve_name: str, mode: str, n: int = MODE_BATCH
+            ) -> tuple[float, int]:
+        items, want = (v[:n] for v in data[curve_name])
         for fn in wrappers.values():
             fn.launches = 0
         t0 = time.perf_counter()
@@ -754,6 +774,11 @@ def modes_phase(wc, dev, ec_base, seed: int, card, per_kernel) -> tuple:
         walls[pair].append(wall)
         name = kernel_of[pair]
         launches[name] = launches.get(name, 0) + count
+    # SMALL_MODES once more on MODE_SMALL items
+    for pair in MODE_PAIRS:
+        if pair[1] in SMALL_MODES:
+            launches[f"{kernel_of[pair]}_{MODE_SMALL}"] = run(
+                *pair, MODE_SMALL)[1]
     rows = {}
     for curve_name, mode in MODE_PAIRS:
         items, _ = data[curve_name]
@@ -792,7 +817,8 @@ def modes_phase(wc, dev, ec_base, seed: int, card, per_kernel) -> tuple:
                "windowed_kernel_ms": win["kernel_ms"],
                "halfgcd_kernel_ms": hg["kernel_ms"],
                "traced": traced}}
-    return out, {n: c for n, c in launches.items() if n in MODE_KERNELS.values()}
+    return out, {n: c for n, c in launches.items()
+                 if n.removesuffix(f"_{MODE_SMALL}") in MODE_KERNELS.values()}
 
 
 def traced_window(batcher_factory, groups, want):
@@ -1635,10 +1661,11 @@ def mesh_phase(dev, card, seed: int, base, ec_base, b7) -> tuple:
 
 
 def build_parent_kernels(parent: str) -> dict:
-    """nvcc, both at once, on the B2 and B4 sources of an earlier commit
+    """nvcc, all at once, on the AB_LIBS sources of an earlier commit
     (``parent``/corda_tpu_torch/csrc) into corda_tpu_torch/_build/ab/;
-    returns {target: library}, each launcher bound as that commit's
-    (``<target>_verify(ptrs..., ok, n, stream)``)."""
+    returns {target: library}, each launcher bound as this checkout's
+    (``secp256k1_hybrid_verify(ptrs..., ok, n, stream)``,
+    ``weierstrass_shamir_verify(ptrs..., ok, n, curve, stream)``)."""
     import ctypes
     from corda_tpu_torch import _build
     from corda_tpu_torch.ops import _cuda
@@ -1646,7 +1673,7 @@ def build_parent_kernels(parent: str) -> dict:
     out_dir = os.path.join(_build.BUILD_DIR, "ab")
     os.makedirs(out_dir, exist_ok=True)
     procs = {}
-    for target in ("ed25519_split", "secp256r1_split"):
+    for target in AB_LIBS:
         out = os.path.join(out_dir, f"lib{target}-parent.so")
         procs[target] = (out, subprocess.Popen(
             [_build.nvcc_path(), *_build._NVCC_FLAGS, "-o", out,
@@ -1663,127 +1690,109 @@ def build_parent_kernels(parent: str) -> dict:
         lib = ctypes.CDLL(out)
         fn = getattr(lib, f"{target}_verify")
         fn.restype = ctypes.c_int
-        n_ptrs = 10 if target == "ed25519_split" else 11
-        fn.argtypes = ([ctypes.c_void_p] * (n_ptrs + 1)
-                       + [ctypes.c_int64, ctypes.c_void_p])
+        fn.argtypes = ([ctypes.c_void_p] * (AB_LIBS[target] + 1)
+                       + [ctypes.c_int64]
+                       + [ctypes.c_int] * (target == "weierstrass_shamir")
+                       + [ctypes.c_void_p])
         _cuda.bind_error_string(lib, target)
         libs[target] = lib
     return libs
 
 
-def ab_phase(parent: str, dev, card, seed: int, base, ec_base) -> dict:
-    """Phase 8 (--ab): an earlier commit's B2 and B4 against this
-    checkout's. Kernels: at each AB_BUCKETS bucket, every variant's raw
-    verdicts equal the plain version's, then CUDA-event medians in turns
-    (forward, then backward). Interactive 1k groups of Ed25519 and
-    secp256r1 through one SignatureBatcher, the parent's kernels behind
-    the wrappers or this checkout's, in AB_TURNS order after a warm-up;
-    p50 and p99 (max for the 20 secp256r1 runs) per side."""
+def ab_phase(parent: str, dev, card, seed: int, ec_base) -> dict:
+    """Phase 8 (--ab): an earlier commit's B3 and B8 Shamir against this
+    checkout's. Kernels: at each AB_BUCKETS bucket, on phase 2's adversarial
+    batches, both kernels' raw verdicts equal the plain version's, then
+    CUDA-event medians in turns (forward, then backward). Interactive
+    1k secp256k1 groups through one SignatureBatcher, the earlier B3 behind
+    the wrapper or this checkout's, in AB_TURNS order after a warm-up; p50
+    and p99 per side."""
     import torch
-    from corda_tpu_torch.core.crypto import PublicKey, ecmath
-    from corda_tpu_torch.core.crypto.schemes import (ECDSA_SECP256R1_SHA256,
-                                                     EDDSA_ED25519_SHA512)
+    from corda_tpu_torch.core.crypto import ecmath
+    from corda_tpu_torch.core.crypto.schemes import ECDSA_SECP256K1_SHA256
     from corda_tpu_torch.ops import _cuda as cu
-    from corda_tpu_torch.ops import ed25519 as ed
     from corda_tpu_torch.ops import weierstrass as wc
     from corda_tpu_torch.verifier import SignatureBatcher
     libs = build_parent_kernels(parent)
-    mine_libs = {"ed25519_split": ed.load_kernel(),
-                 "secp256r1_split": wc.load_r1_split_kernel()}
-    curve = ecmath.SECP256R1
+    mine = {"secp256k1_hybrid": wc.load_hybrid_kernel(),
+            "weierstrass_shamir": wc.load_shamir_kernel()}
 
-    def launcher(lib, target, n, lanes=None):
-        return lambda args: cu.launch_verify(lib, f"{target}_verify", args,
-                                             n, dev, lanes)
+    def variants(target, n, curve_id=None):
+        return {side: (lambda args, lib=lib: cu.launch_verify(
+                    lib, f"{target}_verify", args, n, dev, curve_id))
+                for side, lib in (("parent", libs[target]),
+                                  ("change", mine[target]))}
     out = {"card": card, "kernels": {}, "interactive": {}}
     for bucket in AB_BUCKETS:
-        items, _ = tile(base, bucket, seed + bucket)
-        *wire, _ = ed.prepare_batch_split(items)
-        ed_args = (*ed.wire_to_device(*wire, device=dev),
-                   *ed.split_tables(dev))
-        items, _ = ecdsa_kernel_batch(curve, ec_base["secp256r1"], bucket,
-                                      seed + 5 * bucket)
-        *wire, _, _ = wc.prepare_batch_r1_split(curve, items)
-        r1_args = (*wc.wire_to_device(wire, dev), *wc.r1_split_tables(dev))
-        cases = {
-            "ed25519_split_verify": (ed_args, ed.verify_core_split_plain, {
-                "parent": launcher(libs["ed25519_split"], "ed25519_split",
-                                   bucket),
-                "one_lane": launcher(mine_libs["ed25519_split"],
-                                     "ed25519_split", bucket, 1),
-                "pairs": launcher(mine_libs["ed25519_split"],
-                                  "ed25519_split", bucket, 2)}),
-            "secp256r1_split_verify": (r1_args, wc.verify_core_r1_split_plain,
-                                       {"parent": launcher(
-                                           libs["secp256r1_split"],
-                                           "secp256r1_split", bucket),
-                                        "pairs": launcher(
-                                            mine_libs["secp256r1_split"],
-                                            "secp256r1_split", bucket)}),
-        }
-        for name, (args, plain, variants) in cases.items():
+        cases = {}
+        for k, name in enumerate(("secp256k1", "secp256r1")):
+            curve = _curve(name)
+            items, _ = ecdsa_kernel_batch(curve, ec_base[name], bucket,
+                                          seed + (3 + 2 * k) * bucket)
+            if name == "secp256k1":
+                *wire, _ = wc.prepare_batch_hybrid_wide(items)
+                args = (*wc.wire_to_device(wire, dev), *wc.hybrid_tables(dev))
+                cases["secp256k1_hybrid_verify"] = (
+                    args, wc.verify_core_hybrid_wide_plain,
+                    variants("secp256k1_hybrid", bucket))
+            *wire, _ = wc.prepare_batch(curve, items)
+            args = wc.wire_to_device(wire, dev)
+            cases[f"{name}_shamir_verify"] = (
+                args, lambda *a, name=name: wc.verify_core_plain(*a, name),
+                variants("weierstrass_shamir", bucket, CURVE_IDS[name]))
+        for name, (args, plain, fns) in cases.items():
             want = plain(*args).cpu()
-            for v, fn in variants.items():
+            for v, fn in fns.items():
                 got = fn(args)
                 torch.cuda.synchronize()
                 if not torch.equal(got.cpu(), want):
                     raise SystemExit(f"--ab: {name} ({v}) disagrees with its "
                                      f"plain version at bucket {bucket}")
-            runs = {v: [] for v in variants}
-            for v in [*variants, *reversed(variants)]:
-                runs[v].append(time_cuda(lambda v=v: variants[v](args), RUNS))
+            runs = {v: [] for v in fns}
+            for v in [*fns, *reversed(fns)]:
+                runs[v].append(time_cuda(lambda v=v: fns[v](args), RUNS))
             row = {"ms": {v: statistics.median(r) for v, r in runs.items()},
                    "ms_runs": runs}
             out["kernels"].setdefault(name, {})[bucket] = row
             log(json.dumps({"ab_kernel": name, "bucket": bucket, **row,
                             "card": card}))
 
-    ed_items, ed_want = tile(base, 1024, seed + 2)
-    ed_checks = [(PublicKey(EDDSA_ED25519_SHA512, p), s, m)
-                 for p, s, m in ed_items]
-    r1_items, r1_want = tile(
-        ec_base["secp256r1"], 1024, seed + 14,
+    curve = ecmath.SECP256K1
+    items, want = tile(
+        ec_base["secp256k1"], 1024, seed + 13,
         lambda it, kind, other: tamper_ecdsa(curve, it, kind, other))
-    r1_checks = [to_check(curve, ECDSA_SECP256R1_SHA256, it)
-                 for it in r1_items]
-    mine = (ed.verify_core_split_cuda, wc.verify_core_r1_split_cuda)
+    checks = [to_check(curve, ECDSA_SECP256K1_SHA256, it) for it in items]
+    own = wc.verify_core_hybrid_wide_cuda
 
-    def parent_fn(target):
-        def run(*args):
-            return cu.launch_verify(libs[target], f"{target}_verify", args,
-                                    int(args[0].shape[-1]), args[0].device)
-        return run
-    theirs = (parent_fn("ed25519_split"), parent_fn("secp256r1_split"))
-    schemes = (("ed25519", ed_checks, ed_want, INTERACTIVE_RUNS),
-               ("secp256r1", r1_checks, r1_want, EC_INTERACTIVE_RUNS))
-    lat = {(name, side): [] for name, *_ in schemes
-           for side in ("parent", "change")}
+    def parent_b3(*args):
+        return cu.launch_verify(libs["secp256k1_hybrid"],
+                                "secp256k1_hybrid_verify", args,
+                                int(args[0].shape[-1]), args[0].device)
+    lat = {"parent": [], "change": []}
     batcher = SignatureBatcher(device="cuda")
     try:
         # one warm-up group a side, then the timed turns
         for warm, side in [(True, "parent"), (True, "change"),
                            *((False, t) for t in AB_TURNS)]:
-            ed.verify_core_split_cuda, wc.verify_core_r1_split_cuda = (
-                theirs if side == "parent" else mine)
-            for name, checks, want, runs in schemes:
-                for _ in range(1 if warm else runs):
-                    t1 = time.perf_counter()
-                    got = batcher.submit_group(
-                        checks, latency_class="interactive").result(
-                            timeout=600)
-                    dt = time.perf_counter() - t1
-                    if got != want:
-                        raise SystemExit(f"--ab: {name} interactive verdicts "
-                                         f"({side}) disagree with the "
-                                         "construction")
-                    if not warm:
-                        lat[(name, side)].append(dt)
+            wc.verify_core_hybrid_wide_cuda = (parent_b3 if side == "parent"
+                                               else own)
+            for _ in range(1 if warm else INTERACTIVE_RUNS):
+                t1 = time.perf_counter()
+                got = batcher.submit_group(
+                    checks, latency_class="interactive").result(timeout=600)
+                dt = time.perf_counter() - t1
+                if got != want:
+                    raise SystemExit("--ab: secp256k1 interactive verdicts "
+                                     f"({side}) disagree with the "
+                                     "construction")
+                if not warm:
+                    lat[side].append(dt)
     finally:
-        ed.verify_core_split_cuda, wc.verify_core_r1_split_cuda = mine
+        wc.verify_core_hybrid_wide_cuda = own
         batcher.close()
-    for (name, side), xs in lat.items():
+    for side, xs in lat.items():
         xs.sort()
-        out["interactive"].setdefault(name, {})[side] = {
+        out["interactive"].setdefault("secp256k1", {})[side] = {
             "p50_ms": 1e3 * statistics.median(xs),
             "p99_ms": 1e3 * xs[min(len(xs) - 1, int(0.99 * len(xs)))],
             "runs": len(xs)}
@@ -1801,13 +1810,14 @@ def main() -> int:
                          "and print no result line (a short check of "
                          "kernels on the card)")
     ap.add_argument("--ab", default=None, metavar="PARENT",
-                    help="also time an earlier commit's B2 and B4 kernels "
-                         "(PARENT/corda_tpu_torch/csrc) against this "
-                         "checkout's, and the interactive latency with "
-                         "each (phase 8)")
+                    help="also time an earlier commit's B3 and B8 Shamir "
+                         "kernels (PARENT/corda_tpu_torch/csrc) against "
+                         "this checkout's, and the secp256k1 interactive "
+                         "latency with each B3 (phase 8)")
     args = ap.parse_args()
-    if args.ab is not None and not os.path.isfile(os.path.join(
-            args.ab, "corda_tpu_torch", "csrc", "ed25519_split.cu")):
+    if args.ab is not None and not all(os.path.isfile(os.path.join(
+            args.ab, "corda_tpu_torch", "csrc", f"{target}.cu"))
+            for target in AB_LIBS):
         ap.error(f"--ab: {args.ab} holds no corda_tpu_torch/csrc")
     only = (None if args.only_kernels is None else
             set(KERNELS) if args.only_kernels == "all" else
@@ -1956,7 +1966,7 @@ def main() -> int:
         t_phase = log_phase("kernels", t_phase)
         log(json.dumps({"kernels_checked": sorted(only)}))
         if args.ab is not None:
-            ab_phase(args.ab, dev, card, args.seed + 53, base, ec_base)
+            ab_phase(args.ab, dev, card, args.seed + 53, ec_base)
             log_phase("ab", t_phase)
         return 0
     b10_rows = b10_kernel_phase(dev, card, args.seed + 43)
@@ -2148,6 +2158,7 @@ def main() -> int:
             "service_verifies_per_s": EC_BULK_GROUPS * len(checks) / wall,
             "bulk_items": EC_BULK_GROUPS * len(checks), "bulk_wall_s": wall,
             "bulk_submit_s": submit_s}
+    k1_bulk_launches = wc.verify_core_hybrid_wide.launches
     for name in schemes:
         checks, want = ec_inter[name]
         lat = []
@@ -2239,7 +2250,9 @@ def main() -> int:
         "host_routed": count(snap, "SigBatcher.HostRouted"),
         "prep_device_overlap_pct": ec_overlap,
         "breakers": {k: v["state"] for k, v in breakers.items()},
-        "hybrid_k1_launches": k1_launches, "r1_split_launches": r1_launches,
+        "hybrid_k1_launches": k1_launches,
+        "hybrid_k1_bulk_launches": k1_bulk_launches,
+        "r1_split_launches": r1_launches,
         "r1_split_stats": wc.r1_split_stats(),
         "mixed_txs": MIXED_TXS, "mixed_tx_type": type(stxs[0]).__name__,
         "mixed_wall_s": mixed_s,
@@ -2266,13 +2279,17 @@ def main() -> int:
 
     # -- phase 8: an earlier commit's B2 and B4 against this checkout's ------
     if args.ab is not None:
-        ab_phase(args.ab, dev, card, args.seed + 53, base, ec_base)
+        ab_phase(args.ab, dev, card, args.seed + 53, ec_base)
         log_phase("ab", t_phase)
 
 
+    # B3's 32768 row counts the service path's bulk launches, its 1024 row
+    # the interactive ones; B8 Shamir's rows the modes phase's 32768 and
+    # MODE_SMALL runs
     launches = {"ed25519_split_verify": ed_by_lanes[1],
                 "ed25519_split_verify_pairs": ed_by_lanes[2],
-                "secp256k1_hybrid_verify": k1_launches,
+                "secp256k1_hybrid_verify": k1_bulk_launches,
+                "secp256k1_hybrid_verify_1024": k1_launches - k1_bulk_launches,
                 "secp256r1_split_verify": r1_launches, **b6_launches,
                 **mode_launches, **b7_launches}
     rows = []
@@ -2280,6 +2297,9 @@ def main() -> int:
                                      *PAIR_ROWS.items()]:
         meta = KERNELS[lib_name]
         top = per_kernel[lib_name][bucket]
+        if launches[name] == 0:
+            raise SystemExit(f"{name} (lanes {top['lanes']}) was launched no "
+                             "time on its path")
         rows.append({
             "name": name, "route": "cuda", "source": meta["source"],
             "replaces": meta["replaces"], "launches": launches[name],

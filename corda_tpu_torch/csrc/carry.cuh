@@ -1,5 +1,6 @@
 // Multi-word integer steps for the Comba fields of the lane-pair kernels
-// (B1 under B2 and B4: csrc/field25519_comba.cuh, csrc/field_p256_comba.cuh):
+// (B1 under B2, B3, B4 and B8 Shamir: csrc/field25519_comba.cuh,
+// csrc/field_k1_comba.cuh, csrc/field_p256_comba.cuh):
 // 8-word add and subtract with carry or borrow out, multiply-add rows, the
 // 3-word Comba accumulator, and the doubling and diagonal chains of a
 // squaring.
@@ -13,12 +14,13 @@
 //   results, for checking the arithmetic against big integers as host
 //   C++.
 // The one-thread kernels keep the earlier fields (csrc/field25519.cuh,
-// csrc/field_p256.cuh): built on these fields, large one-thread kernels
-// (B5's secp256r1 kernel, B7's windowed kernel, B2's and B4's one-lane
-// kernels) rejected every valid signature on the card in some builds and
-// not in others, on either implementation, with the same register and
-// stack counts and after edits that change no value, and nvcc crashed on
-// one of them; the host build was always right (PERF.md §6).
+// csrc/field_k1.cuh, csrc/field_p256.cuh): built on these fields, large
+// one-thread kernels (B5's secp256r1 kernel, B7's windowed kernel, B2's
+// and B4's one-lane kernels) rejected every valid signature on the card
+// in some builds and not in others, on either implementation, with the
+// same register and stack counts and after edits that change no value,
+// and nvcc crashed on one of them; the host build was always right
+// (PERF.md §6).
 #pragma once
 #include <stdint.h>
 

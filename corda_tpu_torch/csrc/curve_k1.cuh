@@ -1,12 +1,12 @@
 // Projective secp256k1 points for Hopper device code: the complete a = 0
 // formulas of Renes-Costello-Batina 2016 (Algorithms 7, 8 and 9, b3 = 21)
 // over csrc/field_k1.cuh, the affine G-table add, and the K1Curve traits
-// that the two-curve kernels (csrc/weierstrass_shamir.cu,
-// csrc/weierstrass_windowed.cu) are templated on.
+// that the two-curve kernel csrc/weierstrass_windowed.cu is templated on.
 //
 // Replaces the a = 0 branches of corda_tpu/ops/weierstrass.py add, dbl and
-// _madd_w (with _add_k1 and _madd_k1) for the kernels B3, B5 and B8, which
-// share this one copy. Every formula has no data-dependent branch; the
+// _madd_w (with _add_k1 and _madd_k1) for the one-thread kernels B5 and B8
+// GLV, which share this one copy (B3 and B8 Shamir run the lane-pair
+// formulas of csrc/curve_k1_pair.cuh). Every formula has no data-dependent branch; the
 // identity is (0:1:0). The mixed addition is not valid for an identity
 // addend: table rows that hold the identity carry flag 0 and keep the
 // accumulator (k1_g_add).

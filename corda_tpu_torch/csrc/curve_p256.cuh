@@ -1,12 +1,13 @@
 // Projective P-256 (secp256r1) points for Hopper device code: the complete
 // a = -3 formulas of Renes-Costello-Batina 2016 (Algorithms 4, 5 and 6)
 // over csrc/field_p256.cuh, the affine G-table add, and the P256Curve
-// traits that the two-curve kernels (csrc/weierstrass_shamir.cu,
-// csrc/weierstrass_windowed.cu) are templated on.
+// traits that the two-curve kernel csrc/weierstrass_windowed.cu is
+// templated on.
 //
 // Replaces the a = -3 branches of corda_tpu/ops/weierstrass.py add, dbl and
-// _madd_w (with _add_m3, _dbl_m3 and _m3_tail) for the kernels B4, B5 and
-// B8, which share this one copy. Every formula has no data-dependent
+// _madd_w (with _add_m3, _dbl_m3 and _m3_tail) for the one-thread kernel
+// B5 (B4 and B8 Shamir run the lane-pair formulas of
+// csrc/curve_p256_pair.cuh). Every formula has no data-dependent
 // branch; the identity is (0:1:0). The mixed addition is not valid for an
 // identity addend: table rows that hold the identity carry flag 0 and keep
 // the accumulator (r1_g_add).

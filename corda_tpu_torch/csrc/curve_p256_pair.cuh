@@ -1,7 +1,7 @@
-// Projective P-256 formulas over a lane pair, for the pair kernel of B4
-// (csrc/secp256r1_split.cu), on the Comba field csrc/field_p256_comba.cuh:
-// the complete a = -3 formulas of Renes-Costello-Batina 2016 (Algorithms
-// 4, 5 and 6).
+// Projective P-256 formulas over a lane pair, for the pair kernels of B4
+// (csrc/secp256r1_split.cu) and B8 (csrc/weierstrass_shamir.cu), on the
+// Comba field csrc/field_p256_comba.cuh: the complete a = -3 formulas of
+// Renes-Costello-Batina 2016 (Algorithms 4, 5 and 6).
 //
 // Replaces the a = -3 branches of corda_tpu/ops/weierstrass.py add, dbl
 // and _madd_w, as csrc/curve_p256.cuh does for one thread: each formula
@@ -19,6 +19,14 @@
 
 #include "field_p256_comba.cuh"
 #include "lanes.cuh"
+
+// The generator G, little-endian words.
+__device__ __constant__ uint32_t P256_GX[8] = {
+    0xd898c296u, 0xf4a13945u, 0x2deb33a0u, 0x77037d81u,
+    0x63a440f2u, 0xf8bce6e5u, 0xe12c4247u, 0x6b17d1f2u};
+__device__ __constant__ uint32_t P256_GY[8] = {
+    0x37bf51f5u, 0xcbb64068u, 0x6b315eceu, 0x2bce3357u,
+    0x7c0f9e16u, 0x8ee7eb4au, 0xfe1a7f9bu, 0x4fe342e2u};
 
 struct r1pt {
   p256fe X, Y, Z;
@@ -207,3 +215,35 @@ __device__ __forceinline__ void r1pt_dbl_pair(r1pt &o, const r1pt &p,
   p256_add(m, m, m);
   p256_add(o.Z, m, m);
 }
+
+// The secp256r1 side of the two-curve pair kernel (csrc/weierstrass_shamir.cu).
+struct P256PairCurve {
+  typedef p256fe fe;
+  typedef r1pt pt;
+  typedef P256Field field;
+  static __device__ __forceinline__ void identity(pt &o) { r1pt_identity(o); }
+  static __device__ __forceinline__ void add(pt &o, const pt &p, const pt &q,
+                                             bool odd) {
+    r1pt_add_pair(o, p, q, odd);
+  }
+  static __device__ __forceinline__ void dbl(pt &o, const pt &p, bool odd) {
+    r1pt_dbl_pair(o, p, odd);
+  }
+  static __device__ __forceinline__ void load16(fe &o, const uint16_t *src) {
+    p256_load16(o, src);
+  }
+  static __device__ __forceinline__ void generator(pt &o) {
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      o.X.v[k] = P256_GX[k];
+      o.Y.v[k] = P256_GY[k];
+    }
+    p256_one(o.Z);
+  }
+  static __device__ __forceinline__ bool eq(const fe &a, const fe &b) {
+    return p256_eq(a, b);
+  }
+  static __device__ __forceinline__ bool is_zero(const fe &a) {
+    return p256_is_zero(a);
+  }
+};

@@ -9,18 +9,33 @@
 // table T[i + 4j] = [i]Qc + [j]Qd selected by 2-bit digits. It accepts when
 // Z != 0 and X == r*Z, or rn_ok and X == (r + n)*Z (projective x == r).
 //
-// Design: one thread per signature; the field is csrc/field_k1.cuh (8 x
-// 32-bit words, 64 32x32->64 multiply-adds a product). Points are projective
-// (X:Y:Z) with the complete a = 0 formulas of Renes-Costello-Batina 2016
-// (Algorithms 7, 8 and 9, b3 = 21; csrc/curve_k1.cuh, shared with B5 and
-// B8), so there are no data-dependent branches;
-// the peeled first step may select T[0], the identity (0:1:0), which the
-// complete formulas take as they take any point. The mixed addition is not
-// valid for an identity addend, so the table's identity rows (flag 0) keep
-// the accumulator instead (a select, as the JAX kernel's g_add). The joint
-// table lives in local memory (1.5 KB a thread); the table rows of the
-// 2^18-entry G table (17 MB with its flags, resident in the 50 MB L2) are
-// gathered from global memory.
+// Design (redesigned for Hopper): two lanes of a warp per signature
+// (csrc/lanes.cuh), at every batch size: at 32768 signatures too they beat
+// the earlier one-thread kernel (PERF.md §6). Points are projective (X:Y:Z)
+// with the complete a = 0 formulas of Renes-Costello-Batina 2016
+// (Algorithms 7, 8 and 9, b3 = 21), so there are no data-dependent
+// branches; the peeled first step may select T[0], the identity (0:1:0),
+// which the complete formulas take as they take any point. The mixed
+// addition is not valid for an identity addend, so the G table's identity
+// rows (flag 0) keep the accumulator instead (a select, as the JAX
+// kernel's g_add). Both lanes hold the accumulator; each layer of
+// independent products in the formulas (csrc/curve_k1_pair.cuh) is split
+// between them and exchanged with __shfl_xor_sync, so a doubling runs 4
+// products deep instead of 8 and an addition 6 instead of 12. The field is
+// csrc/field_k1_comba.cuh: Comba products and the fold by 2^32 + 977 on
+// PTX carry chains (csrc/carry.cuh), a 36-multiply squaring. The joint
+// table is split between the lanes: the even lane keeps rows 0-7 and the
+// odd lane rows 8-15 in local memory (768 bytes a lane, the earlier
+// one-thread kernel's 1.5 KB a signature), and the owner of the selected
+// row hands it to its partner by shuffles. The rows of the 2^18-entry G
+// table (17 MB with its flags) are resident in the 50 MB L2; the next
+// outer step's row is copied into shared memory with cp.async (the even
+// lane x, the odd lane y) while the step's 8 doublings and 4 Q additions
+// run, so its L2 latency leaves the chain. 128 threads a block;
+// __launch_bounds__(128, 4): 128 registers a lane, 16 warps a
+// multiprocessor. A freshly built library is held against the plain
+// version on known answers before its first verdict
+// (ops/known_answers.py).
 //
 // Bound: integer multiply throughput. Field products a signature (b3 * x
 // is a small-constant multiply and not counted): joint table 2 doublings x
@@ -28,27 +43,85 @@
 // squarings; 63 Q steps x (2 doublings + 1 addition x 12) = 756 + 756
 // products and 252 squarings; 16 mixed G additions x 11 = 176; accept 2.
 // Total 1823 products of 64 + 8 32x32->64 multiplies and 256 squarings of
-// 36 + 8 (triangular; k1_sqr here still spends 64 + 8), each counted as 2
-// IMAD issue slots: 1823 x 144 + 256 x 88 = 285,040 IMAD a signature.
+// 36 + 8 (triangular), each counted as 2 IMAD issue slots:
+// 1823 x 144 + 256 x 88 = 285,040 IMAD a signature. The pair does work
+// the bound does not count: a mixed addition's (x2 + y2)(X1 + Y1) runs on
+// both lanes (11 table + 16 G additions): 1850 products and 256 squarings,
+// 288,928 IMAD a signature.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "curve_k1.cuh"
+#include "curve_k1_pair.cuh"
 
-// One thread per item. Wire layout (the JAX kernel's, unchanged):
+// Wire layout (the JAX kernel's, unchanged):
 //   g_idx   (16, n) i32: G-table index of outer step s (18 bits); row 0
 //           carries rn_ok at bit 18
 //   q_bits  (16, 4, n) u8: joint Q digits wc | wd << 2, MSB first
 //   pts     (n, 4, 16) u16: Qc x, Qc y, Qd x, Qd y (affine, canonical)
 //   r_limbs (n, 16) u16: r
 //   tables  tab_x, tab_y (2^18, 16) u16 and tab_ok (2^18,) u8
-__global__ void __launch_bounds__(128) secp256k1_hybrid_verify_kernel(
+static const int kBlock = 128;
+static const int32_t kRowMask = (1 << 18) - 1;
+
+// Row k of a pair's joint table: rows 0-7 live with the even lane, rows
+// 8-15 with the odd lane, each at T[k & 7] of its owner.
+__device__ __forceinline__ void k1_row_put(k1pt T[8], int k, const k1pt &p,
+                                           bool odd) {
+  if ((k >> 3) == (int)odd) T[k & 7] = p;
+}
+
+// Row k on both lanes: each lane reads T[k & 7] of its own half, and the
+// owner's copy is kept.
+__device__ __forceinline__ void k1_row_get(k1pt &o, const k1pt T[8], int k,
+                                           bool odd) {
+  const k1pt m = T[k & 7];
+  const bool mine = (k >> 3) == (int)odd;
+  const k1fe *src = &m.X;
+  k1fe *dst = &o.X;
+#pragma unroll
+  for (int f = 0; f < 3; ++f) {
+#pragma unroll
+    for (int w = 0; w < 8; ++w) {
+      const uint32_t x = __shfl_xor_sync(PAIR_FULL_MASK, src[f].v[w], 1);
+      dst[f].v[w] = mine ? src[f].v[w] : x;
+    }
+  }
+}
+
+// Starts the copy of G row ``row`` into rows (x: rows[0..1], y:
+// rows[2..3]; the even lane copies x, the odd lane y) and returns the
+// row's flag.
+__device__ __forceinline__ uint32_t k1_fetch_g(uint4 rows[4],
+                                               const uint16_t *tab_x,
+                                               const uint16_t *tab_y,
+                                               const uint8_t *tab_ok,
+                                               int32_t row, bool odd) {
+  const uint16_t *src = (odd ? tab_y : tab_x) + (int64_t)row * 16;
+  cp_async16(&rows[odd ? 2 : 0], src);
+  cp_async16(&rows[odd ? 3 : 1], src + 8);
+  return __ldg(tab_ok + row);
+}
+
+__device__ __forceinline__ void k1_row_fe(k1fe &o, const uint4 *r) {
+  o.v[0] = r[0].x; o.v[1] = r[0].y; o.v[2] = r[0].z; o.v[3] = r[0].w;
+  o.v[4] = r[1].x; o.v[5] = r[1].y; o.v[6] = r[1].z; o.v[7] = r[1].w;
+}
+
+__global__ void __launch_bounds__(kBlock, 4) secp256k1_hybrid_verify_kernel(
     const int32_t *__restrict__ g_idx, const uint8_t *__restrict__ q_bits,
     const uint16_t *__restrict__ pts, const uint16_t *__restrict__ r_limbs,
     const uint16_t *__restrict__ tab_x, const uint16_t *__restrict__ tab_y,
     const uint8_t *__restrict__ tab_ok, uint8_t *__restrict__ ok, int64_t n) {
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
+  __shared__ uint4 g_rows[kBlock / 2][4];
+  const bool odd = threadIdx.x & 1;
+  const int64_t item = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) >> 1;
+  // lanes past the ragged edge run the last item again (every lane of the
+  // warp must reach every exchange) and store nothing
+  const int64_t i = item < n ? item : n - 1;
+  uint4 *rows = g_rows[threadIdx.x >> 1];
+  const int32_t g0 = g_idx[i];
+  const bool rn_ok = (g0 >> 18) & 1;
+  uint32_t flag = k1_fetch_g(rows, tab_x, tab_y, tab_ok, g0 & kRowMask, odd);
 
   k1fe qcx, qcy, qdx, qdy;
   const uint16_t *row = pts + i * 64;
@@ -56,52 +129,77 @@ __global__ void __launch_bounds__(128) secp256k1_hybrid_verify_kernel(
   k1_load16(qcy, row + 16);
   k1_load16(qdx, row + 32);
   k1_load16(qdy, row + 48);
-  k1pt T[16];
-  k1pt_identity(T[0]);
-  T[1].X = qcx; T[1].Y = qcy; k1_one(T[1].Z);
-  k1pt_dbl(T[2], T[1]);
-  k1pt_madd(T[3], T[2], qcx, qcy);
-  T[4].X = qdx; T[4].Y = qdy; k1_one(T[4].Z);
-  k1pt_dbl(T[8], T[4]);
-  k1pt_madd(T[12], T[8], qdx, qdy);
+  // the joint table: T[2] = 2 T[1], T[3] = T[2] + Qc, T[8] = 2 T[4],
+  // T[12] = T[8] + Qd and T[j + k] = T[j + k - 1] + Qc
+  k1pt T[8], a, b;
+  k1pt_identity(a);
+  k1_row_put(T, 0, a, odd);
+  a.X = qcx; a.Y = qcy; k1_one(a.Z);
+  k1_row_put(T, 1, a, odd);
+  k1pt_dbl_pair(a, a, odd);
+  k1_row_put(T, 2, a, odd);
+  k1pt_madd_pair(a, a, qcx, qcy, odd);
+  k1_row_put(T, 3, a, odd);
+  a.X = qdx; a.Y = qdy; k1_one(a.Z);
+  k1_row_put(T, 4, a, odd);
 #pragma unroll 1
-  for (int j = 4; j <= 12; j += 4) {
+  for (int k = 5; k < 8; ++k) {
+    k1pt_madd_pair(a, a, qcx, qcy, odd);
+    k1_row_put(T, k, a, odd);
+  }
+  a.X = qdx; a.Y = qdy; k1_one(a.Z);
+  k1pt_dbl_pair(a, a, odd);
+  k1_row_put(T, 8, a, odd);
+  k1pt_madd_pair(b, a, qdx, qdy, odd);
+  k1_row_put(T, 12, b, odd);
 #pragma unroll 1
-    for (int k = 1; k <= 3; ++k) k1pt_madd(T[j + k], T[j + k - 1], qcx, qcy);
+  for (int k = 9; k < 12; ++k) {
+    k1pt_madd_pair(a, a, qcx, qcy, odd);
+    k1_row_put(T, k, a, odd);
+  }
+#pragma unroll 1
+  for (int k = 13; k < 16; ++k) {
+    k1pt_madd_pair(b, b, qcx, qcy, odd);
+    k1_row_put(T, k, b, odd);
   }
 
-  const int32_t g0 = g_idx[i];
-  const bool rn_ok = (g0 >> 18) & 1;
   // outer step s: 4 x (2 doublings + 1 Q add), then one G add; step 0
   // starts from the identity, so its first Q add is the entry itself
-  k1pt acc = T[q_bits[i] & 15];
+  k1pt acc;
+  k1_row_get(acc, T, q_bits[i] & 15, odd);
 #pragma unroll 1
   for (int s = 0; s < 16; ++s) {
 #pragma unroll 1
     for (int k = (s == 0) ? 1 : 0; k < 4; ++k) {
-      k1pt_dbl(acc, acc);
-      k1pt_dbl(acc, acc);
-      k1pt_add(acc, acc, T[q_bits[(s * 4 + k) * n + i] & 15]);
+      const int digit = q_bits[(s * 4 + k) * n + i] & 15;
+      k1pt_dbl_pair(acc, acc, odd);
+      k1pt_dbl_pair(acc, acc, odd);
+      k1_row_get(a, T, digit, odd);
+      k1pt_add_pair(acc, acc, a, odd);
     }
-    const int32_t gi = (s == 0) ? (g0 & ((1 << 18) - 1)) : g_idx[s * n + i];
-    k1_g_add(acc, tab_x, tab_y, tab_ok, gi);
+    cp_async_wait_all();
+    __syncwarp();
+    k1fe x2, y2;
+    k1_row_fe(x2, rows);
+    k1_row_fe(y2, rows + 2);
+    k1pt_madd_pair(a, acc, x2, y2, odd);
+    if (flag) acc = a;
+    __syncwarp();
+    if (s < 15)
+      flag = k1_fetch_g(rows, tab_x, tab_y, tab_ok,
+                        g_idx[(s + 1) * n + i] & kRowMask, odd);
   }
 
   // accept: Z != 0 and X == r*Z or, where r + n < p, X == (r + n)*Z
-  k1fe r, rn, nn, rz;
+  k1fe r, rn, nn, rz, rnz;
   k1_load16(r, r_limbs + i * 16);
 #pragma unroll
   for (int k = 0; k < 8; ++k) nn.v[k] = K1_N[k];
   k1_add(rn, r, nn);
-  k1_mul(rz, r, acc.Z);
-  bool hit = k1_eq(acc.X, rz);
-  k1_mul(rz, rn, acc.Z);
-  hit = hit || (rn_ok && k1_eq(acc.X, rz));
-  ok[i] = (!k1_is_zero(acc.Z) && hit) ? 1 : 0;
+  pair_mul<K1Field>(rz, rnz, r, acc.Z, rn, acc.Z, odd);
+  const bool hit = k1_eq(acc.X, rz) || (rn_ok && k1_eq(acc.X, rnz));
+  if (item < n && !odd) ok[i] = (!k1_is_zero(acc.Z) && hit) ? 1 : 0;
 }
-
-// Launch geometry: threads a block, and threads (lanes) a signature.
-static const int kBlock = 128, kLanes = 1;
 
 extern "C" {
 
@@ -113,9 +211,8 @@ int secp256k1_hybrid_verify(const void *g_idx, const void *q_bits,
                             const void *tab_ok, void *ok, int64_t n,
                             void *stream) {
   if (n <= 0) return 0;
-  const int threads = kBlock;
-  const int64_t blocks = (n + threads - 1) / threads;
-  secp256k1_hybrid_verify_kernel<<<(unsigned)blocks, threads, 0,
+  const int64_t blocks = (n * 2 + kBlock - 1) / kBlock;
+  secp256k1_hybrid_verify_kernel<<<(unsigned)blocks, kBlock, 0,
                                    (cudaStream_t)stream>>>(
       (const int32_t *)g_idx, (const uint8_t *)q_bits, (const uint16_t *)pts,
       (const uint16_t *)r_limbs, (const uint16_t *)tab_x,
@@ -123,19 +220,20 @@ int secp256k1_hybrid_verify(const void *g_idx, const void *q_bits,
   return (int)cudaGetLastError();
 }
 
-// Resident blocks a multiprocessor of the kernel at ``block`` threads a
-// block (cudaOccupancyMaxActiveBlocksPerMultiprocessor), or -1 on error.
+// Resident blocks a multiprocessor at ``block`` threads a block
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor), or -1 on error.
 int secp256k1_hybrid_occupancy(int block) {
   int blocks = 0;
-  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &blocks, secp256k1_hybrid_verify_kernel, block, 0) != cudaSuccess)
-    return -1;
-  return blocks;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+             &blocks, secp256k1_hybrid_verify_kernel, block, 0) == cudaSuccess
+             ? blocks
+             : -1;
 }
 
 int secp256k1_hybrid_block(void) { return kBlock; }
 
-int secp256k1_hybrid_lanes(void) { return kLanes; }
+// Lanes (threads) a signature.
+int secp256k1_hybrid_lanes(void) { return 2; }
 
 const char *secp256k1_hybrid_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);

@@ -1,11 +1,13 @@
-"""Known answers for freshly loaded signature kernels (B2, B4).
+"""Known answers for freshly loaded signature kernels (B2, B3, B4, B8 Shamir).
 
 The kernels are compiled at first use by the toolkit of the machine that runs
-them. Before a B2 or B4 library gives its first verdict in a process, a fixed
-batch runs through every kernel behind its launcher (B2 on one lane and on lane
-pairs, B4 on lane pairs) and through the kernel's plain PyTorch version on the
-CPU. The batch holds valid signatures, tampered ones, and items whose host
-precheck fails, whose wire rows the prep zeroes or fills with placeholders. The
+them. Before a B2, B3, B4 or B8 Shamir library gives its first verdict in a
+process, a fixed batch runs through every kernel behind its launcher (B2 on
+one lane and on lane pairs, B3 and B4 on lane pairs, B8 on lane pairs for
+each curve) and through the kernel's plain PyTorch version on the CPU. The batch holds
+valid signatures, tampered ones, and items whose host precheck fails, whose
+wire rows the prep zeroes or fills with placeholders (and for B3 signatures
+whose x(R) = r + n, for B8 keys G and -G). The
 raw verdicts (before the precheck mask) must agree on every row, or the library
 is refused with :class:`BuildError`. The lane-pair kernels run on the Comba
 field, which was exact in every build tried; large one-thread kernels on the
@@ -70,18 +72,16 @@ def ed25519_items() -> tuple:
     return tuple(items)
 
 
-@functools.lru_cache(maxsize=1)
-def r1_items() -> tuple:
-    """secp256r1 (pub, msg, r, s) items: four valid signatures; the first
-    one tampered (message, s) and with a failing precheck (no key, an
-    off-curve key, r = 0, r >= n, s = 0, high s); valid signatures under
-    the keys G and -G (G + Q = 2G, and the point at infinity)."""
-    curve = ecmath.SECP256R1
+def _ecdsa_items(curve, tag: bytes) -> list:
+    """(pub, msg, r, s) items of ``curve``: four valid signatures; the
+    first one tampered (message, s) and with a failing precheck (no key,
+    an off-curve key, r = 0, r >= n, s = 0, high s); valid signatures
+    under the keys G and -G (G + Q = 2G, and the point at infinity)."""
     items = []
-    for i, priv in enumerate([int.from_bytes(_seeded(b"p256 key", i), "big")
+    for i, priv in enumerate([int.from_bytes(_seeded(tag + b" key", i), "big")
                               % (curve.n - 1) + 1 for i in range(4)]
                              + [1, curve.n - 1]):
-        msg = _seeded(b"p256 message", i)
+        msg = _seeded(tag + b" message", i)
         items.append((curve.mul(priv, curve.g), msg,
                       *ecmath.ecdsa_sign(curve, priv, msg)))
     pub, msg, r, s = items[0]
@@ -93,7 +93,43 @@ def r1_items() -> tuple:
               (pub, msg, r + curve.n, s),
               (pub, msg, r, 0),
               (pub, msg, r, curve.n - s)]
-    return tuple(items)
+    return items
+
+
+def _crafted_rn(curve, tag: bytes, valid: bool) -> tuple:
+    """A signature whose R has x(R) = r + n < p, which honest signing
+    reaches with negligible odds: R is chosen first (the least x above n
+    with a point) and the key solved for, Q = r^-1 (s R - e G); the s of
+    an invalid one is off by one."""
+    p, n = curve.p, curve.n
+    x = n + 1
+    while pow((x ** 3 + curve.a * x + curve.b) % p, (p - 1) // 2, p) != 1:
+        x += 1
+    y = pow((x ** 3 + curve.a * x + curve.b) % p, (p + 1) // 4, p)
+    msg = _seeded(tag + b" crafted", 0)
+    r = x - n
+    s = int.from_bytes(_seeded(tag + b" crafted s", 0), "big") % (n // 2) + 1
+    e = ecmath._bits2int(hashlib.sha256(msg).digest(), n) % n
+    Q = curve.mul(pow(r, n - 2, n), curve.add(curve.mul(s, (x, y)),
+                                              curve.mul(n - e, curve.g)))
+    return (Q, msg, r, s if valid else s + 1)
+
+
+@functools.lru_cache(maxsize=1)
+def r1_items() -> tuple:
+    """secp256r1 items of :func:`_ecdsa_items`."""
+    return tuple(_ecdsa_items(ecmath.SECP256R1, b"p256"))
+
+
+@functools.lru_cache(maxsize=1)
+def k1_items() -> tuple:
+    """secp256k1 items of :func:`_ecdsa_items`, then a valid and an
+    invalid signature with x(R) = r + n (rn_ok set: B3 accepts the valid
+    one through its r + n candidate)."""
+    curve = ecmath.SECP256K1
+    return tuple(_ecdsa_items(curve, b"k1")
+                 + [_crafted_rn(curve, b"k1", True),
+                    _crafted_rn(curve, b"k1", False)])
 
 
 def _held(target: str, what: str, got: torch.Tensor,
@@ -133,3 +169,31 @@ def check_r1_split(launch, device) -> None:
         *wc.wire_to_device(wire, "cpu"), *(t.cpu() for t in tabs))
     args = (*wc.wire_to_device(wire, device), *tabs)
     _held("secp256r1_split", "lane pairs", launch(args, len(items)), want)
+
+
+def check_hybrid(launch, device) -> None:
+    """Hold B3 against its plain version on :func:`k1_items`:
+    ``launch(args, n)`` returns the kernel's raw verdicts; raises
+    BuildError on any difference."""
+    items = k1_items()
+    *wire, _ = wc.prepare_batch_hybrid_wide(list(items))
+    tabs = wc.hybrid_tables(device)
+    want = wc.verify_core_hybrid_wide_plain(
+        *wc.wire_to_device(wire, "cpu"), *(t.cpu() for t in tabs))
+    args = (*wc.wire_to_device(wire, device), *tabs)
+    _held("secp256k1_hybrid", "lane pairs", launch(args, len(items)), want)
+
+
+def check_shamir(launch, device) -> None:
+    """Hold B8 (Shamir) against its plain version on :func:`k1_items` and
+    :func:`r1_items`: ``launch(args, n, curve_id)`` runs the kernel of the
+    curve and returns its raw verdicts; raises BuildError on any
+    difference."""
+    for curve_id, (curve, items) in enumerate(
+            ((ecmath.SECP256K1, k1_items()), (ecmath.SECP256R1, r1_items()))):
+        *wire, _ = wc.prepare_batch(curve, list(items))
+        want = wc.verify_core_plain(*wc.wire_to_device(wire, "cpu"),
+                                    curve.name)
+        args = wc.wire_to_device(wire, device)
+        _held("weierstrass_shamir", f"{curve.name}, lane pairs",
+              launch(args, len(items), curve_id), want)

@@ -771,9 +771,17 @@ _LAUNCH_LOCK = threading.Lock()
 
 @functools.lru_cache(maxsize=1)
 def load_hybrid_kernel():
-    """The hybrid kernel's library, built from ``csrc/`` at first use.
-    Raises :class:`BuildError` when it cannot be built."""
-    return cu.bind_verify("secp256k1_hybrid", 7)
+    """The hybrid kernel's library, built from ``csrc/`` at first use and
+    held against the plain version on known answers on the current CUDA
+    device (:mod:`.known_answers`). Raises :class:`BuildError` when it
+    cannot be built or gives a wrong answer."""
+    from . import known_answers
+    lib = cu.bind_verify("secp256k1_hybrid", 7)
+    device = torch.device("cuda", torch.cuda.current_device())
+    known_answers.check_hybrid(
+        lambda args, n: cu.launch_verify(lib, "secp256k1_hybrid_verify",
+                                         args, n, device), device)
+    return lib
 
 
 def verify_core_hybrid_wide_cuda(g_idx, q_bits, pts, r_limbs,
@@ -939,8 +947,17 @@ def verify_core_plain(u1_bits, u2_bits, q_pts, r_cands,
 @functools.lru_cache(maxsize=1)
 def load_shamir_kernel():
     """The Shamir kernel's library (both curves), built from ``csrc/`` at
-    first use. Raises :class:`BuildError` when it cannot be built."""
-    return cu.bind_verify("weierstrass_shamir", 4, with_int=True)
+    first use and held against the plain version on known answers on the
+    current CUDA device (:mod:`.known_answers`). Raises
+    :class:`BuildError` when it cannot be built or gives a wrong answer."""
+    from . import known_answers
+    lib = cu.bind_verify("weierstrass_shamir", 4, with_int=True)
+    device = torch.device("cuda", torch.cuda.current_device())
+    known_answers.check_shamir(
+        lambda args, n, curve_id: cu.launch_verify(
+            lib, "weierstrass_shamir_verify", args, n, device, curve_id),
+        device)
+    return lib
 
 
 def verify_core_cuda(u1_bits, u2_bits, q_pts, r_cands,

@@ -7,7 +7,8 @@ torch.cuda.is_available() is False). On a machine with an NVIDIA GPU:
 lacks.)
 
 Each CUDA kernel (B2 Ed25519, B3 secp256k1, B4 secp256r1, B5 windowed and
-B8 Shamir/GLV ECDSA, B6 SHA-256/Merkle, B7 Ed25519 Shamir and windowed)
+B8 Shamir/GLV ECDSA — B3, B4 and B8 Shamir on lane pairs, B2 on lane pairs
+or one lane by batch size —, B6 SHA-256/Merkle, B7 Ed25519 Shamir and windowed)
 must give the same results as its plain PyTorch version, bit for bit (B10,
 the SIMM margin, too: both round every float32 operation in one order);
 the batcher's device routes
@@ -763,20 +764,71 @@ def test_b4_runs_lane_pairs_at_every_size(cuda):
                                                                *tabs).cpu())
 
 
-@pytest.mark.parametrize("target", ["ed25519_split", "secp256r1_split"])
+# -- B3 and B8 Shamir on lane pairs ----------------------------------------
+
+@pytest.mark.parametrize("n", RAGGED + [32768])
+@pytest.mark.parametrize("name", ["secp256k1_hybrid", "secp256k1_shamir",
+                                  "secp256r1_shamir"])
+def test_b3_and_b8_lane_pairs_match_plain_versions_at_every_size(cuda, name,
+                                                                  n):
+    """B3 and both B8 Shamir instantiations run two lanes a signature at
+    every size; raw verdicts equal the plain version's on the known-answer
+    items (precheck failures, x(R) = r + n, keys G and -G) and signed ones,
+    tiled to ragged sizes and to 32768, and the wrapper counts one
+    launch."""
+    from corda_tpu_torch.ops import _cuda
+    from corda_tpu_torch.ops import known_answers as ka
+    from corda_tpu_torch.ops import weierstrass as wc
+    curve = (ecmath.SECP256K1 if name.startswith("secp256k1")
+             else ecmath.SECP256R1)
+    items = list(ka.k1_items() if curve is ecmath.SECP256K1
+                 else ka.r1_items()) + _ecdsa_items(curve, 12, 95)
+    want = [pub is not None and ecmath.ecdsa_verify(curve, pub, msg, r, s)
+            for pub, msg, r, s in items]
+    if name == "secp256k1_hybrid":
+        *wire, precheck = wc.prepare_batch_hybrid_wide(items)
+        wire = _tile_wire(wire, (1, 2, 0, 0), n)
+        fn, plain = wc.verify_core_hybrid_wide, wc.verify_core_hybrid_wide_plain
+        tail = wc.hybrid_tables(cuda)
+        geometry = _cuda.geometry("secp256k1_hybrid", n)
+    else:
+        *wire, precheck = wc.prepare_batch(curve, items)
+        wire = _tile_wire(wire, (1, 1, 1, 1), n)
+        fn, plain, tail = wc.verify_core, wc.verify_core_plain, (curve.name,)
+        geometry = _cuda.geometry("weierstrass_shamir", n,
+                                  0 if curve is ecmath.SECP256K1 else 1)
+    assert geometry["lanes"] == 2
+    args = [torch.from_numpy(a).to(cuda) for a in wire]
+    before = fn.launches
+    ok = fn(*args, *tail)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    assert torch.equal(ok.cpu(), plain(*args, *tail).cpu())
+    idx = np.arange(n) % len(items)
+    assert list(ok.cpu().numpy() & precheck[idx]) == [want[i] for i in idx]
+
+
+@pytest.mark.parametrize("target", ["ed25519_split", "secp256r1_split",
+                                    "secp256k1_hybrid", "weierstrass_shamir"])
 def test_a_library_that_fails_its_known_answers_is_refused(
         cuda, monkeypatch, target):
-    """A freshly loaded B2 or B4 library whose raw verdicts differ from the
-    plain version's on the known-answer batch raises BuildError and gives
-    no verdict (here the plain version is made to disagree)."""
+    """A freshly loaded B2, B3, B4 or B8 Shamir library whose raw verdicts
+    differ from the plain version's on the known-answer batch raises
+    BuildError and gives no verdict (here the plain version is made to
+    disagree)."""
     from corda_tpu_torch import _build
     from corda_tpu_torch.ops import ed25519 as ed
     from corda_tpu_torch.ops import weierstrass as wc
     if target == "ed25519_split":
         mod, plain, load = ed, "verify_core_split_plain", ed.load_kernel
-    else:
+    elif target == "secp256r1_split":
         mod, plain, load = wc, "verify_core_r1_split_plain", \
             wc.load_r1_split_kernel
+    elif target == "secp256k1_hybrid":
+        mod, plain, load = wc, "verify_core_hybrid_wide_plain", \
+            wc.load_hybrid_kernel
+    else:
+        mod, plain, load = wc, "verify_core_plain", wc.load_shamir_kernel
     real = getattr(mod, plain)
     monkeypatch.setattr(mod, plain, lambda *a: ~real(*a))
     load.cache_clear()

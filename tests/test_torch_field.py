@@ -113,7 +113,8 @@ def test_cuda_header_constants_match_ecmath():
     """The device headers' constant words are the host constants: 2d and
     p of edwards25519, p and n of secp256k1, p and b of P-256, in the
     one-thread fields and in the pair kernels' Comba fields (with
-    2^256 - p of P-256)."""
+    2^256 - p of P-256), and the generators of both curves in the one-thread
+    and the pair formulas."""
     from corda_tpu_torch.core.crypto import ecmath
     words = _header_words("field25519.cuh")
     assert words("FE_D2") == ecmath.ED_D2
@@ -131,6 +132,15 @@ def test_cuda_header_constants_match_ecmath():
     words = _header_words("field25519_comba.cuh")
     assert words("FE_D2") == ecmath.ED_D2
     assert words("FE_P") == P
+    words = _header_words("field_k1_comba.cuh")
+    assert words("K1_P") == ecmath.SECP256K1.p
+    assert words("K1_N") == ecmath.SECP256K1.n
+    for header in ("curve_k1.cuh", "curve_k1_pair.cuh"):
+        words = _header_words(header)
+        assert (words("K1_GX"), words("K1_GY")) == ecmath.SECP256K1.g
+    for header in ("curve_p256.cuh", "curve_p256_pair.cuh"):
+        words = _header_words(header)
+        assert (words("P256_GX"), words("P256_GY")) == ecmath.SECP256R1.g
 
 
 def _edges(p):

@@ -1,9 +1,11 @@
-"""The known-answer batches that a freshly loaded B2 or B4 library must pass
-before its first verdict (corda_tpu_torch/ops/known_answers.py), on the CPU:
-the batches hold valid, tampered and precheck-failed items whose masked
-verdicts equal the host oracle's, and the check passes a kernel equal to the
-plain version and refuses one that differs on a single raw verdict. On the
-card the same check runs against the built kernels (tests/test_torch_cuda.py).
+"""The known-answer batches that a freshly loaded B2, B3, B4 or B8 Shamir
+library must pass before its first verdict
+(corda_tpu_torch/ops/known_answers.py), on the CPU: the batches hold valid,
+tampered and precheck-failed items (and x(R) = r + n signatures for B3, keys
+G and -G for B8) whose masked verdicts equal the host oracle's, and the
+check passes a kernel equal to the plain version and refuses one that
+differs on a single raw verdict. On the card the same check runs against
+the built kernels (tests/test_torch_cuda.py).
 """
 import pytest
 import torch
@@ -41,18 +43,59 @@ def test_r1_batch_masked_verdicts_equal_the_host_oracle():
     assert 0 < sum(want) < len(items) and not precheck.all()
 
 
-def _memo_plain(plain):
-    """A stand-in kernel: the plain version, computed once."""
-    memo = []
+def _ecdsa_oracle(curve, items):
+    return [pub is not None and ecmath.ecdsa_verify(curve, pub, msg, r, s)
+            for pub, msg, r, s in items]
 
-    def run(args):
-        if not memo:
-            memo.append(plain(*args))
-        return memo[0].clone()
+
+def test_k1_batch_masked_verdicts_equal_the_host_oracle():
+    """B3's batch: its x(R) = r + n rows carry rn_ok, and the valid one is
+    accepted through the r + n candidate."""
+    curve = ecmath.SECP256K1
+    items = list(ka.k1_items())
+    *wire, precheck = wc.prepare_batch_hybrid_wide(items)
+    raw = wc.verify_core_hybrid_wide_plain(
+        *wc.wire_to_device(wire, CPU), *wc.hybrid_tables(CPU)).numpy()
+    want = _ecdsa_oracle(curve, items)
+    assert list(raw & precheck) == want
+    assert 0 < sum(want) < len(items) and not precheck.all()
+    rn_ok = (wire[0][0] >> 18) & 1
+    assert rn_ok[-2:].all() and want[-2:] == [True, False]
+    assert all(r + curve.n < curve.p for _, _, r, _ in items[-2:])
+
+
+@pytest.mark.parametrize("curve_name", ["secp256k1", "secp256r1"])
+def test_shamir_batches_masked_verdicts_equal_the_host_oracle(curve_name):
+    """B8's batches, one a curve, with valid signatures under the keys G
+    (G + Q = 2G) and -G (G + Q = O)."""
+    curve = wc.CURVES[curve_name]
+    items = list(ka.k1_items() if curve_name == "secp256k1"
+                 else ka.r1_items())
+    *wire, precheck = wc.prepare_batch(curve, items)
+    raw = wc.verify_core_plain(*wc.wire_to_device(wire, CPU),
+                               curve_name).numpy()
+    want = _ecdsa_oracle(curve, items)
+    assert list(raw & precheck) == want
+    assert 0 < sum(want) < len(items) and not precheck.all()
+    keys = [pub for pub, *_ in items]
+    assert curve.g in keys and curve.mul(curve.n - 1, curve.g) in keys
+
+
+def _memo_plain(plain):
+    """A stand-in kernel: the plain version, computed once for each first
+    argument's shape."""
+    memo = {}
+
+    def run(args, *extra):
+        key = tuple(args[0].shape) + extra
+        if key not in memo:
+            memo[key] = plain(*args, *extra)
+        return memo[key].clone()
     return run
 
 
-@pytest.mark.parametrize("target", ["ed25519_split", "secp256r1_split"])
+@pytest.mark.parametrize("target", ["ed25519_split", "secp256r1_split",
+                                    "secp256k1_hybrid", "weierstrass_shamir"])
 def test_check_passes_the_plain_version_and_refuses_one_wrong_verdict(
         target):
     if target == "ed25519_split":
@@ -66,7 +109,7 @@ def test_check_passes_the_plain_version_and_refuses_one_wrong_verdict(
                 return ok
             ka.check_ed25519_split(launch, CPU)
         wrong = [1, 2]
-    else:
+    elif target == "secp256r1_split":
         kernel = _memo_plain(wc.verify_core_r1_split_plain)
 
         def check(flip_lanes):
@@ -77,8 +120,31 @@ def test_check_passes_the_plain_version_and_refuses_one_wrong_verdict(
                 return ok
             ka.check_r1_split(launch, CPU)
         wrong = [2]
+    elif target == "secp256k1_hybrid":
+        kernel = _memo_plain(wc.verify_core_hybrid_wide_plain)
+
+        def check(flip):
+            def launch(args, n):
+                ok = kernel(args)
+                if flip:
+                    ok[n - 2] = ~ok[n - 2]
+                return ok
+            ka.check_hybrid(launch, CPU)
+        wrong = [True]
+    else:
+        kernel = _memo_plain(wc.verify_core_plain)
+        names = ("secp256k1", "secp256r1")
+
+        def check(flip_curve):
+            def launch(args, n, curve_id):
+                ok = kernel(args, names[curve_id])
+                if curve_id == flip_curve:
+                    ok[n - 1] = ~ok[n - 1]
+                return ok
+            ka.check_shamir(launch, CPU)
+        wrong = [0, 1]
     check(None)
-    for lanes in wrong:
+    for flip in wrong:
         with pytest.raises(_build.BuildError,
                            match=f"{target}.*1 of .* known-answer rows"):
-            check(lanes)
+            check(flip)

@@ -28,11 +28,15 @@ Phases (any failure exits non-zero; nothing is caught):
              Verdicts bit-identical and equal to the
              construction; CUDA-event medians of both versions, the
              card's least time for the same work, and each launch's lanes
-             a signature and warps a multiprocessor (B2 runs lane pairs up
-             to 16384 items, one lane above; B3, B4 and B8 Shamir run lane
-             pairs at every size). A freshly loaded B2, B3, B4 or B8
-             Shamir library has also been held against its plain version
-             on known answers (ops/known_answers.py).
+             a signature and warps a multiprocessor (B2 and B7 Shamir run
+             lane pairs up to 16384 items, one lane above, and B7 Shamir is
+             timed at 16384 too; B3, B4, B5 and B8 Shamir run lane pairs at
+             every size). B5 and B7 Shamir are also held raw against their
+             plain versions at the ragged sizes 1, 31, 33, 4095 and 4097
+             (B7 Shamir at its lane threshold +-1 too). A freshly loaded
+             B2, B3, B4, B5, B7 Shamir or B8 Shamir library has also been
+             held against its plain version on known answers
+             (ops/known_answers.py).
              Then B10 (SIMM margin)
              on the demo book and seeded books of 1024, 2^16 and 2^20
              trades: equal to its plain version bit for bit (and so within
@@ -50,8 +54,9 @@ Phases (any failure exits non-zero; nothing is caught):
              to hashlib.
 3. modes   — weierstrass.verify_batch for every (curve, mode) on 32768
              items (1/16 tampered): secp256k1 hybrid, windowed, plain and
-             glv, secp256r1 halfgcd, windowed and plain (plain once more
-             on 1024 items, for B8 Shamir's 1024 rows). One warm-up pass,
+             glv, secp256r1 halfgcd, windowed and plain (plain and
+             windowed once more on 1024 items, for the 1024 rows of B8
+             Shamir and B5). One warm-up pass,
              two timed passes in turns (secp256r1: halfgcd, windowed,
              windowed, halfgcd); verdicts equal to the construction and
              exactly the mode's kernel launched in every run (counts set to
@@ -77,7 +82,9 @@ Phases (any failure exits non-zero; nothing is caught):
              and the secp256k1/secp256r1 word-form wrappers on 32768 items
              (equal to the construction and the unsharded verify_batch),
              the sharded B7 Shamir and windowed callables on a prepared
-             32768 batch, sharded_merkle_root on 2^20 leaves (equal to
+             32768 batch (B7 Shamir on one lane for the 32768-item shard,
+             on lane pairs for the two 16384-item ones, counted by lanes),
+             sharded_merkle_root on 2^20 leaves (equal to
              hashlib and merkle_root), tx_verify_step on 32768 signatures
              and 2^17 leaves, and SignatureBatcher(mesh=...) bulk groups
              (the 2-shard one with a secp256k1 and a secp256r1 group too);
@@ -108,12 +115,13 @@ Phases (any failure exits non-zero; nothing is caught):
              recording device activity for the rest of a process).
 8. ab      — only with --ab PARENT (a directory holding an earlier commit's
              corda_tpu_torch/csrc, e.g. unpacked by git archive): that
-             commit's B3 and B8 Shamir kernels built beside this
-             checkout's and timed on the same inputs in turns at 256 to
-             32768 items (B8 for each curve) after a raw bit-identity
-             check, and the interactive 1k latency of the secp256k1
-             service path with the parent's B3 behind the wrapper and with
-             this checkout's, in turns (parent, change, change, parent).
+             commit's B3, B5, B7 Shamir and B8 Shamir kernels built beside
+             this checkout's and timed on the same inputs in turns at 256
+             to 32768 items (B5 and B8 for each curve, B7 Shamir on each
+             of its lane variants) after a raw bit-identity check, and the
+             interactive 1k latency of the secp256k1 service path with the
+             parent's B3 behind the wrapper and with this checkout's, in
+             turns (parent, change, change, parent).
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. ``--only-kernels`` runs phases 1 and 2 only,
@@ -157,20 +165,24 @@ def imad_per_sig(products: int, squarings: int, fold: int) -> int:
 #: Per signature, counted in each kernel's source note:
 #: B2 (csrc/ed25519_split.cu): 1303 products, 766 squarings; wire arrays
 #: bb_idx 64, a_packed 64, rows 192, r_packed 32 and the verdict, plus the
-#: six Niels tables once. ``design_imad``: what a kernel's design issues
-#: where it differs from the bound's count, by lanes a signature (B2, B3,
-#: B4 and B8 r1 on lane pairs run some products on both lanes: 1406
-#: products and 1020 squarings for B2, 1850 and 256 for B3, 2330 and 262
-#: for B4, 6672 and 512 for B8 r1; B2's one-lane kernel squares with a
-#: full product: 2069 products); the bound keeps the reference's count, so
-#: the rows stay comparable across designs.
+#: six Niels tables once. The bound counts the least work known for the
+#: function: the reference's ladder, or B7 Shamir's 4-bit windows, which
+#: need less than its bit ladder. ``design_imad``: what a kernel's design
+#: issues where it differs from the bound's count, by lanes a signature
+#: (B2, B3, B4, B5, B7 Shamir and B8 r1 on lane pairs run some products on
+#: both lanes: 1406 products and 1020 squarings for B2, 1850 and 256 for
+#: B3, 2330 and 262 for B4, 2588 and 518 for B5 k1, 4314 and 518 for B5
+#: r1, 2176 and 1008 for B7 Shamir, 6672 and 512 for B8 r1; the one-lane
+#: kernels of B2 and B7 Shamir square with a full product: 2069 and 3105
+#: products).
 #: B3 (csrc/secp256k1_hybrid.cu): 1823 products, 256 squarings; wire g_idx
 #: 64, q_bits 64, pts 128, r_limbs 32 and the verdict, plus each distinct
 #: G-table row gathered (x 32 + y 32 + flag 1 bytes).
 #: B4 (csrc/secp256r1_split.cu): 2044 products, 393 squarings; wire g_idx
 #: 64, q_digits 32, q_x/q_y 64, xd 32 and the verdict, plus each distinct
 #: row gathered from the G and G' tables.
-#: B7 Shamir (csrc/ed25519_shamir.cu): 3339 products, 1024 squarings; wire
+#: B7 Shamir (csrc/ed25519_shamir.cu): 2097 products, 1008 squarings (4-bit
+#: Straus windows; the reference's bit ladder needs 3339 and 1024); wire
 #: s/k bit planes 512, -A 128, R 64 and the verdict. B7 windowed
 #: (csrc/ed25519_windowed.cu): 2297 products, 1274 squarings; wire b_idx
 #: 64, a_digits 128, -A 128, r_y 32, r_sign 1 and the verdict, plus each
@@ -203,12 +215,14 @@ KERNELS = {
         "lib": "secp256r1_split"},
     "secp256k1_windowed_verify": {
         "imad": imad_per_sig(2565, 518, 8), "wire": 64 + 64 + 64 + 32 + 2,
+        "design_imad": {2: imad_per_sig(2588, 518, 8)},
         "source": "corda_tpu_torch/csrc/weierstrass_windowed.cu",
         "replaces": "corda_tpu/ops/weierstrass.py:889",
         "lib": "weierstrass_windowed", "curve": "secp256k1",
         "mode": "windowed"},
     "secp256r1_windowed_verify": {
         "imad": imad_per_sig(3773, 777, 0), "wire": 64 + 64 + 64 + 32 + 2,
+        "design_imad": {2: imad_per_sig(4314, 518, 0)},
         "source": "corda_tpu_torch/csrc/weierstrass_windowed.cu",
         "replaces": "corda_tpu/ops/weierstrass.py:889",
         "lib": "weierstrass_windowed", "curve": "secp256r1",
@@ -230,7 +244,9 @@ KERNELS = {
         "replaces": "corda_tpu/ops/weierstrass.py:508",
         "lib": "secp256k1_glv", "curve": "secp256k1", "mode": "glv"},
     "ed25519_shamir_verify": {
-        "imad": imad_per_sig(3339, 1024, 8), "wire": 512 + 128 + 64 + 1,
+        "imad": imad_per_sig(2097, 1008, 8), "wire": 512 + 128 + 64 + 1,
+        "design_imad": {1: imad_per_sig(3105, 0, 8),
+                        2: imad_per_sig(2176, 1008, 8)},
         "source": "corda_tpu_torch/csrc/ed25519_shamir.cu",
         "replaces": "corda_tpu/ops/ed25519.py:383", "lib": "ed25519_shamir",
         "ladder": "shamir"},
@@ -244,21 +260,35 @@ KERNELS = {
 #: Rows of the kernels line beside KERNELS' (read at 32768): lane-pair
 #: kernels read at the interactive 1024 bucket — B2's pairs (the
 #: ``ed25519_split_verify`` row is its one-lane kernel), with launches by
-#: lanes a signature, and B3 and B8 Shamir (pairs at every size), with the
-#: launches of their paths' 1024-item batches.
+#: lanes a signature, and B3, B5 and B8 Shamir (pairs at every size), with
+#: the launches of their paths' 1024-item batches —, and B7 Shamir's pairs
+#: at 16384 (the ``ed25519_shamir_verify`` row is its one-lane kernel),
+#: the shard of the 2-shard mesh, with launches by lanes a signature.
 PAIR_ROWS = {"ed25519_split_verify_pairs": ("ed25519_split_verify", 1024),
+             "ed25519_shamir_verify_pairs": ("ed25519_shamir_verify", 16384),
              **{f"{name}_1024": (name, 1024)
                 for name in ("secp256k1_hybrid_verify",
                              "secp256k1_shamir_verify",
-                             "secp256r1_shamir_verify")}}
+                             "secp256r1_shamir_verify",
+                             "secp256k1_windowed_verify",
+                             "secp256r1_windowed_verify")}}
+#: Sizes at which phase 2 also holds B5 and B7 Shamir raw against their
+#: plain versions (no timing): ragged edges of a block of lane pairs, and
+#: B7 Shamir's lane threshold (kPairItems) +-1.
+RAGGED = (1, 31, 33, 4095, 4097)
+RAGGED_KERNELS = {"ed25519_shamir_verify": (16383, 16385),
+                  "secp256k1_windowed_verify": (),
+                  "secp256r1_windowed_verify": ()}
 #: The verify_batch modes that the modes phase also runs on MODE_SMALL
 #: items, for their kernels' 1024 rows.
-SMALL_MODES = ("plain",)
+SMALL_MODES = ("plain", "windowed")
 MODE_SMALL = 1024
 #: --ab: the libraries an earlier commit's kernels are built from (their
-#: launchers' wire pointers; the Shamir launcher also takes a curve id),
-#: the buckets of the kernel A/B, and the order of its turns.
-AB_LIBS = {"secp256k1_hybrid": 7, "weierstrass_shamir": 4}
+#: launchers' wire pointers; the two-curve launchers of TWO_CURVE_LIBS
+#: also take a curve id), the buckets of the kernel A/B, and the order of
+#: its turns.
+AB_LIBS = {"secp256k1_hybrid": 7, "weierstrass_shamir": 4,
+           "ed25519_shamir": 8, "weierstrass_windowed": 9}
 AB_BUCKETS = (256, 1024, 4096, 16384, 32768)
 AB_TURNS = ("parent", "change", "change", "parent")
 #: The B7 kernels: an adversarial batch of B7_DISTINCT signed items (1/16
@@ -284,6 +314,9 @@ NIELS_TABLE_BYTES = 6 * 65536 * 32
 G_ROW_BYTES = 32 + 32 + 1
 
 BUCKETS = (256, 1024, 4096, 32768)
+#: Phase 2 buckets beyond BUCKETS, by kernel: those of PAIR_ROWS.
+ROW_BUCKETS = {lib: bucket for lib, bucket in PAIR_ROWS.values()
+               if bucket not in BUCKETS}
 #: Service-phase shape. Ed25519: 512 signers over 2048 distinct signed
 #: messages, 8 bulk groups of 32768, 25 interactive 1k groups, 20 single
 #: submits. ECDSA, per curve: 64 signers over 256 distinct messages (host
@@ -610,11 +643,10 @@ def require_clean(snap, breakers, device_route, label):
 # Phases
 # ---------------------------------------------------------------------------
 
-def compare_kernel(name, kernel, plain, args, tables, bucket, table_bytes,
-                   final_fn, want, card):
-    """One bucket of phase 2: the kernel against its plain version on the
-    same tensors (bit-identical verdicts), the verdicts after the host
-    masks against the construction, and both versions' times."""
+def hold_kernel(name, kernel, plain, args, tables, bucket, final_fn, want):
+    """The kernel against its plain version on the same tensors
+    (bit-identical raw verdicts), and the verdicts after the host masks
+    against the construction. Returns both versions' raw verdicts."""
     import torch
     ok_k = kernel(*args, *tables)
     ok_p = plain(*args, *tables)
@@ -627,6 +659,15 @@ def compare_kernel(name, kernel, plain, args, tables, bucket, table_bytes,
     if list(final_fn(k)) != want:
         raise SystemExit(f"{name} verdicts disagree with the construction "
                          f"at bucket {bucket}")
+    return k, p
+
+
+def compare_kernel(name, kernel, plain, args, tables, bucket, table_bytes,
+                   final_fn, want, card):
+    """One bucket of phase 2: :func:`hold_kernel`, then both versions'
+    times."""
+    k, p = hold_kernel(name, kernel, plain, args, tables, bucket, final_fn,
+                       want)
     ms = time_cuda(lambda: kernel(*args, *tables), RUNS)
     plain_ms = time_cuda(lambda: plain(*args, *tables),
                          2 if bucket == 32768 else 1)
@@ -1310,6 +1351,36 @@ def b7_case(ed, name: str, prep, want, n: int, dev):
             ed.windowed_table(dev), rows * NIELS_ROW_BYTES, precheck, wantn)
 
 
+def hold_b7_shamir_lanes(ed, prep, want, sizes, dev, card) -> None:
+    """B7 Shamir's two kernels, each forced through the launcher's lanes
+    argument whatever its threshold picks, against the plain version at
+    each of ``sizes`` (raw bit-identity and the masked verdicts; no
+    timing, no launch counted)."""
+    import torch
+    from corda_tpu_torch.ops import _cuda as cu
+    name = "ed25519_shamir_verify"
+    lib = ed.load_shamir_kernel()
+    for n in sizes:
+        *wire, precheck = take_batch(prep, B7_AXES[name], n)
+        s_bits, k_bits, neg_a, r_aff = ed.b7_to_device(wire, dev)
+        args = (s_bits, k_bits, *neg_a, *r_aff)
+        p = ed.verify_core_plain(s_bits, k_bits, neg_a, r_aff).cpu().numpy()
+        wantn = [want[i % len(want)] for i in range(n)]
+        for lanes in (1, 2):
+            ok = cu.launch_verify(lib, name, args, n, dev, lanes)
+            torch.cuda.synchronize()
+            k = ok.cpu().numpy()
+            if not (k == p).all():
+                raise SystemExit(f"{name} on {lanes} lane(s) disagrees with "
+                                 f"its plain version at {n} items: "
+                                 f"{(k != p).sum()} verdicts")
+            if list(k & precheck) != wantn:
+                raise SystemExit(f"{name} on {lanes} lane(s) disagrees with "
+                                 f"the construction at {n} items")
+    log(json.dumps({"kernel": name, "forced_lanes": [1, 2],
+                    "raw_identical_at": list(sizes), "card": card}))
+
+
 def simm_book(simm, n: int, seed: int):
     """The demo book at 16 trades, a seeded one otherwise."""
     return simm.demo_portfolio() if n == 16 else simm.demo_portfolio(n, seed)
@@ -1532,12 +1603,16 @@ def mesh_phase(dev, card, seed: int, base, ec_base, b7) -> tuple:
     out = {"card": card, "items": MESH_BATCH, "dataset_s":
            time.perf_counter() - t0, "meshes": {}}
     b7_launches = {name: 0 for name in B7_KERNELS}
+    b7_launches["ed25519_shamir_verify_pairs"] = 0
 
     def counted(label, counters, fn):
-        """Run ``fn`` with ``counters``' launch counts set to 0 just
-        before and read just after; every one must have launched."""
+        """Run ``fn`` with ``counters``' launch counts (and counts by lanes
+        a signature, where a wrapper keeps them) set to 0 just before and
+        read just after; every one must have launched."""
         for c in counters:
             c.launches = 0
+            if hasattr(c, "launches_by_lanes"):
+                c.launches_by_lanes.update({1: 0, 2: 0})
         t1 = time.perf_counter()
         result = fn()
         torch.cuda.synchronize()
@@ -1547,6 +1622,16 @@ def mesh_phase(dev, card, seed: int, base, ec_base, b7) -> tuple:
             raise SystemExit(f"mesh {label}: a kernel launched no time: "
                              f"{got}")
         return result, wall, got
+
+    def count_b7(name, counter, n_launch):
+        """Add a B7 path's launches to its kernel's row; B7 Shamir's by
+        lanes a signature (its pairs have a row of their own)."""
+        if counter is ed.verify_core:
+            by_lanes = counter.launches_by_lanes
+            b7_launches[name] += by_lanes[1]
+            b7_launches[name + "_pairs"] += by_lanes[2]
+        else:
+            b7_launches[name] += n_launch
 
     for size in MESH_SIZES:
         mesh = par.make_mesh(devices=[dev] * size)
@@ -1587,7 +1672,7 @@ def mesh_phase(dev, card, seed: int, base, ec_base, b7) -> tuple:
             if list(ok & precheck) != b7_want:
                 raise SystemExit(f"mesh {size}: sharded {label} verdicts "
                                  "disagree with the construction")
-            b7_launches[label + "_verify"] += n_launch
+            count_b7(label + "_verify", counter, n_launch)
             row[label] = {"wall_s": wall, "verifies_per_s": MESH_BATCH / wall,
                           "launches": n_launch}
         root, wall, (n_launch,) = counted(
@@ -1606,7 +1691,7 @@ def mesh_phase(dev, card, seed: int, base, ec_base, b7) -> tuple:
                 or sha.digests_to_bytes(root[None])[0]
                 != host_roots[TX_LEAVES]):
             raise SystemExit(f"mesh {size}: tx_verify_step disagrees")
-        b7_launches["ed25519_shamir_verify"] += n_sig
+        count_b7("ed25519_shamir_verify", ed.verify_core, n_sig)
         row["tx_verify_step"] = {"signatures": MESH_BATCH,
                                  "leaves": TX_LEAVES, "wall_s": wall,
                                  "launches": [n_sig, n_root]}
@@ -1664,8 +1749,8 @@ def build_parent_kernels(parent: str) -> dict:
     """nvcc, all at once, on the AB_LIBS sources of an earlier commit
     (``parent``/corda_tpu_torch/csrc) into corda_tpu_torch/_build/ab/;
     returns {target: library}, each launcher bound as this checkout's
-    (``secp256k1_hybrid_verify(ptrs..., ok, n, stream)``,
-    ``weierstrass_shamir_verify(ptrs..., ok, n, curve, stream)``)."""
+    (``<target>_verify(ptrs..., ok, n, stream)``; the two-curve ones
+    ``<target>_verify(ptrs..., ok, n, curve, stream)``)."""
     import ctypes
     from corda_tpu_torch import _build
     from corda_tpu_torch.ops import _cuda
@@ -1692,36 +1777,51 @@ def build_parent_kernels(parent: str) -> dict:
         fn.restype = ctypes.c_int
         fn.argtypes = ([ctypes.c_void_p] * (AB_LIBS[target] + 1)
                        + [ctypes.c_int64]
-                       + [ctypes.c_int] * (target == "weierstrass_shamir")
+                       + [ctypes.c_int] * (target in TWO_CURVE_LIBS)
                        + [ctypes.c_void_p])
         _cuda.bind_error_string(lib, target)
         libs[target] = lib
     return libs
 
 
-def ab_phase(parent: str, dev, card, seed: int, ec_base) -> dict:
-    """Phase 8 (--ab): an earlier commit's B3 and B8 Shamir against this
-    checkout's. Kernels: at each AB_BUCKETS bucket, on phase 2's adversarial
-    batches, both kernels' raw verdicts equal the plain version's, then
-    CUDA-event medians in turns (forward, then backward). Interactive
-    1k secp256k1 groups through one SignatureBatcher, the earlier B3 behind
-    the wrapper or this checkout's, in AB_TURNS order after a warm-up; p50
-    and p99 per side."""
+def ab_phase(parent: str, dev, card, seed: int, ec_base, b7) -> dict:
+    """Phase 8 (--ab): an earlier commit's B3, B5 (both curves), B7 Shamir
+    and B8 Shamir (both curves) against this checkout's. Kernels: at each
+    AB_BUCKETS bucket, on phase 2's adversarial batches (B7: its tiled
+    batch), every side's raw verdicts equal the plain version's, then
+    CUDA-event medians in turns (forward, then backward); this checkout's
+    B7 Shamir runs as two sides, one lane and lane pairs, whatever its
+    threshold picks. Interactive 1k secp256k1 groups through one
+    SignatureBatcher, the earlier B3 behind the wrapper or this checkout's,
+    in AB_TURNS order after a warm-up; p50 and p99 per side."""
     import torch
     from corda_tpu_torch.core.crypto import ecmath
     from corda_tpu_torch.core.crypto.schemes import ECDSA_SECP256K1_SHA256
     from corda_tpu_torch.ops import _cuda as cu
+    from corda_tpu_torch.ops import ed25519 as ed
     from corda_tpu_torch.ops import weierstrass as wc
     from corda_tpu_torch.verifier import SignatureBatcher
     libs = build_parent_kernels(parent)
     mine = {"secp256k1_hybrid": wc.load_hybrid_kernel(),
-            "weierstrass_shamir": wc.load_shamir_kernel()}
+            "weierstrass_shamir": wc.load_shamir_kernel(),
+            "weierstrass_windowed": wc.load_windowed_kernel(),
+            "ed25519_shamir": ed.load_shamir_kernel()}
 
     def variants(target, n, curve_id=None):
         return {side: (lambda args, lib=lib: cu.launch_verify(
                     lib, f"{target}_verify", args, n, dev, curve_id))
                 for side, lib in (("parent", libs[target]),
                                   ("change", mine[target]))}
+
+    def b7_variants(n):
+        fns = {"parent": lambda args: cu.launch_verify(
+            libs["ed25519_shamir"], "ed25519_shamir_verify", args, n, dev)}
+        for lanes in (1, 2):
+            fns[f"change_{lanes}_lane"] = (
+                lambda args, lanes=lanes: cu.launch_verify(
+                    mine["ed25519_shamir"], "ed25519_shamir_verify", args, n,
+                    dev, lanes))
+        return fns
     out = {"card": card, "kernels": {}, "interactive": {}}
     for bucket in AB_BUCKETS:
         cases = {}
@@ -1740,6 +1840,20 @@ def ab_phase(parent: str, dev, card, seed: int, ec_base) -> dict:
             cases[f"{name}_shamir_verify"] = (
                 args, lambda *a, name=name: wc.verify_core_plain(*a, name),
                 variants("weierstrass_shamir", bucket, CURVE_IDS[name]))
+            *wire, _ = wc.prepare_batch_windowed_single(curve, items)
+            args = (*wc.wire_to_device(wire, dev),
+                    *wc.windowed_tables(curve, dev))
+            cases[f"{name}_windowed_verify"] = (
+                args, lambda *a, name=name:
+                wc.verify_core_windowed_single_plain(*a, name),
+                variants("weierstrass_windowed", bucket, CURVE_IDS[name]))
+        *wire, _ = take_batch(b7[0]["ed25519_shamir_verify"],
+                              B7_AXES["ed25519_shamir_verify"], bucket)
+        s_bits, k_bits, neg_a, r_aff = ed.b7_to_device(wire, dev)
+        cases["ed25519_shamir_verify"] = (
+            (s_bits, k_bits, *neg_a, *r_aff),
+            lambda *a: ed.verify_core_plain(a[0], a[1], a[2:6], a[6:8]),
+            b7_variants(bucket))
         for name, (args, plain, fns) in cases.items():
             want = plain(*args).cpu()
             for v, fn in fns.items():
@@ -1810,9 +1924,10 @@ def main() -> int:
                          "and print no result line (a short check of "
                          "kernels on the card)")
     ap.add_argument("--ab", default=None, metavar="PARENT",
-                    help="also time an earlier commit's B3 and B8 Shamir "
-                         "kernels (PARENT/corda_tpu_torch/csrc) against "
-                         "this checkout's, and the secp256k1 interactive "
+                    help="also time an earlier commit's B3, B5, B7 Shamir "
+                         "and B8 Shamir kernels "
+                         "(PARENT/corda_tpu_torch/csrc) against this "
+                         "checkout's, and the secp256k1 interactive "
                          "latency with each B3 (phase 8)")
     args = ap.parse_args()
     if args.ab is not None and not all(os.path.isfile(os.path.join(
@@ -1860,7 +1975,8 @@ def main() -> int:
     for lib in dict.fromkeys([k["lib"] for k in KERNELS.values()]
                              + ["sha256", B10["lib"]]):
         for line in _build.BUILD_LOG.get(lib, "").splitlines():
-            if "registers" in line or "spill" in line or "stack frame" in line:
+            if any(w in line for w in ("entry function", "registers",
+                                       "spill", "stack frame")):
                 log(f"ptxas {lib}: {line.strip()}")
     import numpy as np
     from corda_tpu_torch.core.crypto import ecmath
@@ -1951,6 +2067,8 @@ def main() -> int:
                 name, kernel, plain, dargs, tail, bucket, tbytes,
                 lambda k, pre=precheck: k & pre, want, card)
 
+        if bucket == 1024:
+            ragged_base = batches
         # B7 on one adversarial batch, prepped once and tiled
         for name in B7_KERNELS:
             if not wanted(name):
@@ -1960,13 +2078,48 @@ def main() -> int:
             per_kernel[name][bucket] = compare_kernel(
                 name, kernel, plain, dargs, tail, bucket, tbytes,
                 lambda k, pre=precheck: k & pre, want, card)
+    # the rows' buckets beyond BUCKETS: B7 Shamir's pairs at 16384
+    for name, bucket in ROW_BUCKETS.items():
+        if wanted(name):
+            (kernel, plain, dargs, tail, tbytes, precheck,
+             want) = b7_case(ed, name, b7[0][name], b7[1], bucket, dev)
+            per_kernel[name][bucket] = compare_kernel(
+                name, kernel, plain, dargs, tail, bucket, tbytes,
+                lambda k, pre=precheck: k & pre, want, card)
+    # B5 and B7 Shamir held raw at ragged sizes and B7's lane threshold
+    for name, extra in RAGGED_KERNELS.items():
+        if not wanted(name):
+            continue
+        for n in RAGGED + extra:
+            if "ladder" in KERNELS[name]:
+                (kernel, plain, dargs, tail, _, precheck,
+                 want) = b7_case(ed, name, b7[0][name], b7[1], n, dev)
+            else:
+                curve = _curve(KERNELS[name]["curve"])
+                items, want = ragged_base[curve.name]
+                items = [items[j % len(items)] for j in range(n)]
+                want = [want[j % len(want)] for j in range(n)]
+                (kernel, plain, dargs, tail, _,
+                 precheck) = mode_kernel_case(wc, curve, "windowed", items,
+                                              dev)
+            hold_kernel(name, kernel, plain, dargs, tail, n,
+                        lambda k, pre=precheck: k & pre, want)
+        log(json.dumps({"kernel": name, "raw_identical_at": RAGGED + extra,
+                        "lanes": [kernel_geometry(name, n)["lanes"]
+                                  for n in RAGGED + extra], "card": card}))
+    # B7 Shamir: both kernels forced, at every size above and every bucket
+    if wanted("ed25519_shamir_verify"):
+        hold_b7_shamir_lanes(
+            ed, b7[0]["ed25519_shamir_verify"], b7[1],
+            RAGGED + RAGGED_KERNELS["ed25519_shamir_verify"] + BUCKETS
+            + (ROW_BUCKETS["ed25519_shamir_verify"],), dev, card)
     log("library_ms: null — no PyTorch call computes Ed25519 or ECDSA "
         "verification")
     if only is not None:
         t_phase = log_phase("kernels", t_phase)
         log(json.dumps({"kernels_checked": sorted(only)}))
         if args.ab is not None:
-            ab_phase(args.ab, dev, card, args.seed + 53, ec_base)
+            ab_phase(args.ab, dev, card, args.seed + 53, ec_base, b7)
             log_phase("ab", t_phase)
         return 0
     b10_rows = b10_kernel_phase(dev, card, args.seed + 43)
@@ -2277,15 +2430,16 @@ def main() -> int:
     log(json.dumps({"path": "ecdsa", **ec_service}))
     t_phase = log_phase("service", t_phase)
 
-    # -- phase 8: an earlier commit's B2 and B4 against this checkout's ------
+    # -- phase 8: an earlier commit's B3, B5, B7 Shamir and B8 Shamir -------
     if args.ab is not None:
-        ab_phase(args.ab, dev, card, args.seed + 53, ec_base)
+        ab_phase(args.ab, dev, card, args.seed + 53, ec_base, b7)
         log_phase("ab", t_phase)
 
 
     # B3's 32768 row counts the service path's bulk launches, its 1024 row
-    # the interactive ones; B8 Shamir's rows the modes phase's 32768 and
-    # MODE_SMALL runs
+    # the interactive ones; B5's and B8 Shamir's rows the modes phase's
+    # 32768 and MODE_SMALL runs; B7 Shamir's rows the mesh phase's one-lane
+    # (32768-item shard) and lane-pair (16384-item shards) launches
     launches = {"ed25519_split_verify": ed_by_lanes[1],
                 "ed25519_split_verify_pairs": ed_by_lanes[2],
                 "secp256k1_hybrid_verify": k1_bulk_launches,

@@ -25,8 +25,10 @@ Eleven shared libraries, all with a plain C interface loaded through ctypes:
   margin), each by nvcc for ``sm_90a``.
 
 Each is built at first use into ``corda_tpu_torch/_build/`` (listed in
-``.gitignore``) under a name that carries a hash of its sources and flags, so
-an edited source is rebuilt and a stale library is never loaded. A build
+``.gitignore``) under a name that carries a hash of its sources, of every
+header they reach through quoted ``#include``s (:func:`include_closure`) and
+of its flags, so an edited source or header is rebuilt and a stale library
+is never loaded. A build
 writes to a temporary file and renames it into place, so processes that
 build at the same time (test workers) never load a half-written library.
 ``build_all`` starts every compiler at once and waits for all of them.
@@ -41,6 +43,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -86,88 +89,46 @@ def _cxx() -> str | None:
     return os.environ.get("CXX") or shutil.which("g++") or shutil.which("c++")
 
 
-#: The field and point headers of the Ed25519 kernels.
-_ED_HEADERS = ("field25519.cuh", "curve_ed25519.cuh")
-#: The field and curve headers of the two-curve ECDSA kernels.
-_CURVE_HEADERS = ("field_k1.cuh", "curve_k1.cuh", "field_p256.cuh",
-                  "curve_p256.cuh")
-#: The lane-pair kernels' own field, formulas and word steps (B2, B4).
-_PAIR_HEADERS = ("carry.cuh", "lanes.cuh")
-_ED_PAIR_HEADERS = ("field25519_comba.cuh", "curve_ed25519_pair.cuh",
-                    *_PAIR_HEADERS)
-_P256_PAIR_HEADERS = ("field_p256_comba.cuh", "curve_p256_pair.cuh",
-                      *_PAIR_HEADERS)
+#: A quoted include of a source or header.
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def include_closure(sources) -> list[str]:
+    """Every file that ``sources`` reach through quoted ``#include``s, each
+    resolved beside the file that includes it, sorted: the headers a build
+    of those sources reads, so that an edit to any of them renames the
+    library."""
+    seen, todo = set(), list(sources)
+    while todo:
+        src = todo.pop()
+        with open(src) as f:
+            text = f.read()
+        for name in _INCLUDE.findall(text):
+            path = os.path.normpath(os.path.join(os.path.dirname(src), name))
+            if path not in seen:
+                seen.add(path)
+                todo.append(path)
+    return sorted(seen)
+
+
+def _nvcc_target(source: str) -> dict:
+    sources = [os.path.join(CSRC, source)]
+    return {"sources": sources, "deps": include_closure(sources),
+            "flags": _NVCC_FLAGS, "compiler": nvcc_path}
+
 
 _TARGETS = {
     "scalarmath": {
         "sources": [os.path.join(_REPO, "native", "scalarmath.cpp")],
-        "deps": [],
+        "deps": include_closure([os.path.join(_REPO, "native",
+                                              "scalarmath.cpp")]),
         "flags": ["-O2", "-fPIC", "-std=c++17", "-shared"],
         "compiler": _cxx,
     },
-    "ed25519_split": {
-        "sources": [os.path.join(CSRC, "ed25519_split.cu")],
-        "deps": [os.path.join(CSRC, h) for h in _ED_HEADERS
-                 + _ED_PAIR_HEADERS],
-        "flags": _NVCC_FLAGS,
-        "compiler": nvcc_path,
-    },
-    "ed25519_shamir": {
-        "sources": [os.path.join(CSRC, "ed25519_shamir.cu")],
-        "deps": [os.path.join(CSRC, h) for h in _ED_HEADERS],
-        "flags": _NVCC_FLAGS,
-        "compiler": nvcc_path,
-    },
-    "ed25519_windowed": {
-        "sources": [os.path.join(CSRC, "ed25519_windowed.cu")],
-        "deps": [os.path.join(CSRC, h) for h in _ED_HEADERS],
-        "flags": _NVCC_FLAGS,
-        "compiler": nvcc_path,
-    },
-    "secp256k1_hybrid": {
-        "sources": [os.path.join(CSRC, "secp256k1_hybrid.cu")],
-        "deps": [os.path.join(CSRC, h) for h in ("field_k1.cuh",
-                                                  "curve_k1.cuh")],
-        "flags": _NVCC_FLAGS,
-        "compiler": nvcc_path,
-    },
-    "secp256r1_split": {
-        "sources": [os.path.join(CSRC, "secp256r1_split.cu")],
-        "deps": [os.path.join(CSRC, h) for h in _P256_PAIR_HEADERS],
-        "flags": _NVCC_FLAGS,
-        "compiler": nvcc_path,
-    },
-    "weierstrass_shamir": {
-        "sources": [os.path.join(CSRC, "weierstrass_shamir.cu")],
-        "deps": [os.path.join(CSRC, h) for h in _CURVE_HEADERS],
-        "flags": _NVCC_FLAGS,
-        "compiler": nvcc_path,
-    },
-    "secp256k1_glv": {
-        "sources": [os.path.join(CSRC, "secp256k1_glv.cu")],
-        "deps": [os.path.join(CSRC, h) for h in ("field_k1.cuh",
-                                                  "curve_k1.cuh")],
-        "flags": _NVCC_FLAGS,
-        "compiler": nvcc_path,
-    },
-    "weierstrass_windowed": {
-        "sources": [os.path.join(CSRC, "weierstrass_windowed.cu")],
-        "deps": [os.path.join(CSRC, h) for h in _CURVE_HEADERS],
-        "flags": _NVCC_FLAGS,
-        "compiler": nvcc_path,
-    },
-    "sha256": {
-        "sources": [os.path.join(CSRC, "sha256.cu")],
-        "deps": [],
-        "flags": _NVCC_FLAGS,
-        "compiler": nvcc_path,
-    },
-    "simm_margin": {
-        "sources": [os.path.join(CSRC, "simm_margin.cu")],
-        "deps": [],
-        "flags": _NVCC_FLAGS,
-        "compiler": nvcc_path,
-    },
+    **{name: _nvcc_target(f"{name}.cu") for name in (
+        "ed25519_split", "ed25519_shamir", "ed25519_windowed",
+        "secp256k1_hybrid", "secp256r1_split", "weierstrass_shamir",
+        "secp256k1_glv", "weierstrass_windowed", "sha256", "simm_margin")},
 }
 
 _LOCK = threading.Lock()

@@ -1,19 +1,21 @@
 // Extended-coordinate edwards25519 formulas over a lane pair, for the
-// pair kernel of B2 (csrc/ed25519_split.cu), on the Comba field
-// csrc/field25519_comba.cuh.
+// pair kernels of B2 (csrc/ed25519_split.cu) and B7 Shamir
+// (csrc/ed25519_shamir.cu), on the Comba field csrc/field25519_comba.cuh.
 //
 // Replaces corda_tpu/ops/ed25519.py add, double and madd_niels (the JAX
 // kernels' point formulas), as csrc/curve_ed25519.cuh does for one thread:
-// each formula computes that file's field values step for step, and only
+// each formula computes that file's field values step for step (the cached
+// addition those of ge_add_cached in csrc/ed25519_shamir.cu), and only
 // which lane computes a product changes (csrc/lanes.cuh). An addition runs
 // 2 + 1 + 2 products deep (the one T1 2d T2 step runs on both lanes), a
-// doubling 2 + 2, a Niels addition 2 + 2 (T td on both lanes). The
+// doubling 2 + 2, a Niels addition 2 + 2 (T td on both lanes), an
+// addition of a cached addend (Y - X, Y + X, Z, 2dT) 2 + 2. The
 // formulas are complete on edwards25519 (a = -1 square, d non-square), so
 // no kernel branches on the data.
 //
-// B2 includes this header inside ``namespace pairs``: its field and point
-// types are the Comba field's, apart from the one-lane kernel's in
-// csrc/curve_ed25519.cuh.
+// B2 and B7 Shamir include this header inside ``namespace pairs``: its
+// field and point types are the Comba field's, apart from the one-lane
+// kernels' in csrc/curve_ed25519.cuh.
 #pragma once
 #include <stdint.h>
 
@@ -76,6 +78,33 @@ __device__ __forceinline__ void ge_add_pair(ge &o, const ge &p, const ge &q,
   for (int i = 0; i < 8; ++i) d2.v[i] = FE_D2[i];
   pair_mul<Field25519>(c, d, p.T, d2, p.Z, q.Z, odd);
   fe_mul(c, c, q.T);
+  fe_mul_small(d, d, 2);
+  fe_sub(e, b, a);
+  fe_sub(f, d, c);
+  fe_add(g, d, c);
+  fe_add(h, b, a);
+  ge_tail_pair(o, e, f, g, h, odd);
+}
+
+// A point in cached form (Y - X, Y + X, Z, 2d T): the addend of
+// ge_add_cached_pair, whose T1 2d T2 is then one product.
+struct ge_cached {
+  fe ymx, ypx, Z, T2d;
+};
+
+// ge_add with a cached addend over a lane pair: (Y1 - X1)(Y2 - X2) |
+// (Y1 + X1)(Y2 + X2), T1 2dT2 | Z1 Z2, then the tail: 4 products deep,
+// none of them on both lanes.
+__device__ __forceinline__ void ge_add_cached_pair(ge &o, const ge &p,
+                                                   const ge_cached &q,
+                                                   bool odd) {
+  fe a, b, c, d, e, f, g, h, u, v;
+  fe_sub(a, p.Y, p.X);
+  fe_add(b, p.Y, p.X);
+  fe_pick(u, odd, b, a);
+  fe_pick(v, odd, q.ypx, q.ymx);
+  pair_mul<Field25519>(a, b, u, v, u, v, odd);
+  pair_mul<Field25519>(c, d, p.T, q.T2d, p.Z, q.Z, odd);
   fe_mul_small(d, d, 2);
   fe_sub(e, b, a);
   fe_sub(f, d, c);

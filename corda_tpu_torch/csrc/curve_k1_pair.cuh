@@ -181,7 +181,8 @@ __device__ __forceinline__ void k1pt_dbl_pair(k1pt &o, const k1pt &p,
   k1_add(o.X, w, w);
 }
 
-// The secp256k1 side of the two-curve pair kernel (csrc/weierstrass_shamir.cu).
+// The secp256k1 side of the two-curve pair kernels
+// (csrc/weierstrass_shamir.cu, csrc/weierstrass_windowed.cu).
 struct K1PairCurve {
   typedef k1fe fe;
   typedef k1pt pt;
@@ -194,8 +195,22 @@ struct K1PairCurve {
   static __device__ __forceinline__ void dbl(pt &o, const pt &p, bool odd) {
     k1pt_dbl_pair(o, p, odd);
   }
+  static __device__ __forceinline__ void madd(pt &o, const pt &p,
+                                              const fe &x2, const fe &y2,
+                                              bool odd) {
+    k1pt_madd_pair(o, p, x2, y2, odd);
+  }
   static __device__ __forceinline__ void load16(fe &o, const uint16_t *src) {
     k1_load16(o, src);
+  }
+  static __device__ __forceinline__ void one(fe &o) { k1_one(o); }
+  static __device__ __forceinline__ void order(fe &o) {
+#pragma unroll
+    for (int k = 0; k < 8; ++k) o.v[k] = K1_N[k];
+  }
+  static __device__ __forceinline__ void fadd(fe &o, const fe &a,
+                                              const fe &b) {
+    k1_add(o, a, b);
   }
   static __device__ __forceinline__ void generator(pt &o) {
 #pragma unroll

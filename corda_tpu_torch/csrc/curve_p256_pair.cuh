@@ -27,6 +27,10 @@ __device__ __constant__ uint32_t P256_GX[8] = {
 __device__ __constant__ uint32_t P256_GY[8] = {
     0x37bf51f5u, 0xcbb64068u, 0x6b315eceu, 0x2bce3357u,
     0x7c0f9e16u, 0x8ee7eb4au, 0xfe1a7f9bu, 0x4fe342e2u};
+// The group order n, little-endian words.
+__device__ __constant__ uint32_t P256_N[8] = {
+    0xfc632551u, 0xf3b9cac2u, 0xa7179e84u, 0xbce6faadu,
+    0xffffffffu, 0xffffffffu, 0x00000000u, 0xffffffffu};
 
 struct r1pt {
   p256fe X, Y, Z;
@@ -216,7 +220,8 @@ __device__ __forceinline__ void r1pt_dbl_pair(r1pt &o, const r1pt &p,
   p256_add(o.Z, m, m);
 }
 
-// The secp256r1 side of the two-curve pair kernel (csrc/weierstrass_shamir.cu).
+// The secp256r1 side of the two-curve pair kernels
+// (csrc/weierstrass_shamir.cu, csrc/weierstrass_windowed.cu).
 struct P256PairCurve {
   typedef p256fe fe;
   typedef r1pt pt;
@@ -229,8 +234,22 @@ struct P256PairCurve {
   static __device__ __forceinline__ void dbl(pt &o, const pt &p, bool odd) {
     r1pt_dbl_pair(o, p, odd);
   }
+  static __device__ __forceinline__ void madd(pt &o, const pt &p,
+                                              const fe &x2, const fe &y2,
+                                              bool odd) {
+    r1pt_madd_pair(o, p, x2, y2, odd);
+  }
   static __device__ __forceinline__ void load16(fe &o, const uint16_t *src) {
     p256_load16(o, src);
+  }
+  static __device__ __forceinline__ void one(fe &o) { p256_one(o); }
+  static __device__ __forceinline__ void order(fe &o) {
+#pragma unroll
+    for (int k = 0; k < 8; ++k) o.v[k] = P256_N[k];
+  }
+  static __device__ __forceinline__ void fadd(fe &o, const fe &a,
+                                              const fe &b) {
+    p256_add(o, a, b);
   }
   static __device__ __forceinline__ void generator(pt &o) {
 #pragma unroll

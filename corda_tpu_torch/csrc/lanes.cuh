@@ -87,3 +87,52 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;" ::: "memory");
 #endif
 }
+
+// A 16-row table of points split between a pair's lanes: row k lives at
+// T[k & 7] of the even lane for k < 8 and of the odd lane for k >= 8 (half
+// the local memory of a whole table a lane). P is any point struct of
+// 32-bit words (its field elements).
+template <class P>
+__device__ __forceinline__ void pair_row_put(P T[8], int k, const P &p,
+                                             bool odd) {
+  if ((k >> 3) == (int)odd) T[k & 7] = p;
+}
+
+// Row k on both lanes: each lane reads T[k & 7] of its own half, the owner
+// keeps its copy and its partner takes it by shuffles, a word at a time.
+template <class P>
+__device__ __forceinline__ void pair_row_get(P &o, const P T[8], int k,
+                                             bool odd) {
+  static_assert(sizeof(P) % 4 == 0, "a row is whole 32-bit words");
+  const P m = T[k & 7];
+  const bool mine = (k >> 3) == (int)odd;
+  const uint32_t *src = reinterpret_cast<const uint32_t *>(&m);
+  uint32_t *dst = reinterpret_cast<uint32_t *>(&o);
+#pragma unroll
+  for (int w = 0; w < (int)(sizeof(P) / 4); ++w) {
+    const uint32_t x = __shfl_xor_sync(PAIR_FULL_MASK, src[w], 1);
+    dst[w] = mine ? src[w] : x;
+  }
+}
+
+// Starts the copy of row ``row`` of an affine table (tab_x, tab_y: 16
+// u16 limbs a coordinate; tab_ok: a flag a row) into rows (x: rows[0..1],
+// y: rows[2..3]; the even lane copies x, the odd lane y) and returns the
+// row's flag. The pair reads rows after cp_async_wait_all and __syncwarp.
+__device__ __forceinline__ uint32_t pair_fetch_row(uint4 rows[4],
+                                                   const uint16_t *tab_x,
+                                                   const uint16_t *tab_y,
+                                                   const uint8_t *tab_ok,
+                                                   int32_t row, bool odd) {
+  const uint16_t *src = (odd ? tab_y : tab_x) + (int64_t)row * 16;
+  cp_async16(&rows[odd ? 2 : 0], src);
+  cp_async16(&rows[odd ? 3 : 1], src + 8);
+  return __ldg(tab_ok + row);
+}
+
+// The field element of 32 bytes at r (two 16-byte vectors).
+template <class FE>
+__device__ __forceinline__ void row_fe(FE &o, const uint4 *r) {
+  o.v[0] = r[0].x; o.v[1] = r[0].y; o.v[2] = r[0].z; o.v[3] = r[0].w;
+  o.v[4] = r[1].x; o.v[5] = r[1].y; o.v[6] = r[1].z; o.v[7] = r[1].w;
+}

@@ -63,50 +63,6 @@
 static const int kBlock = 128;
 static const int32_t kRowMask = (1 << 18) - 1;
 
-// Row k of a pair's joint table: rows 0-7 live with the even lane, rows
-// 8-15 with the odd lane, each at T[k & 7] of its owner.
-__device__ __forceinline__ void k1_row_put(k1pt T[8], int k, const k1pt &p,
-                                           bool odd) {
-  if ((k >> 3) == (int)odd) T[k & 7] = p;
-}
-
-// Row k on both lanes: each lane reads T[k & 7] of its own half, and the
-// owner's copy is kept.
-__device__ __forceinline__ void k1_row_get(k1pt &o, const k1pt T[8], int k,
-                                           bool odd) {
-  const k1pt m = T[k & 7];
-  const bool mine = (k >> 3) == (int)odd;
-  const k1fe *src = &m.X;
-  k1fe *dst = &o.X;
-#pragma unroll
-  for (int f = 0; f < 3; ++f) {
-#pragma unroll
-    for (int w = 0; w < 8; ++w) {
-      const uint32_t x = __shfl_xor_sync(PAIR_FULL_MASK, src[f].v[w], 1);
-      dst[f].v[w] = mine ? src[f].v[w] : x;
-    }
-  }
-}
-
-// Starts the copy of G row ``row`` into rows (x: rows[0..1], y:
-// rows[2..3]; the even lane copies x, the odd lane y) and returns the
-// row's flag.
-__device__ __forceinline__ uint32_t k1_fetch_g(uint4 rows[4],
-                                               const uint16_t *tab_x,
-                                               const uint16_t *tab_y,
-                                               const uint8_t *tab_ok,
-                                               int32_t row, bool odd) {
-  const uint16_t *src = (odd ? tab_y : tab_x) + (int64_t)row * 16;
-  cp_async16(&rows[odd ? 2 : 0], src);
-  cp_async16(&rows[odd ? 3 : 1], src + 8);
-  return __ldg(tab_ok + row);
-}
-
-__device__ __forceinline__ void k1_row_fe(k1fe &o, const uint4 *r) {
-  o.v[0] = r[0].x; o.v[1] = r[0].y; o.v[2] = r[0].z; o.v[3] = r[0].w;
-  o.v[4] = r[1].x; o.v[5] = r[1].y; o.v[6] = r[1].z; o.v[7] = r[1].w;
-}
-
 __global__ void __launch_bounds__(kBlock, 4) secp256k1_hybrid_verify_kernel(
     const int32_t *__restrict__ g_idx, const uint8_t *__restrict__ q_bits,
     const uint16_t *__restrict__ pts, const uint16_t *__restrict__ r_limbs,
@@ -121,7 +77,8 @@ __global__ void __launch_bounds__(kBlock, 4) secp256k1_hybrid_verify_kernel(
   uint4 *rows = g_rows[threadIdx.x >> 1];
   const int32_t g0 = g_idx[i];
   const bool rn_ok = (g0 >> 18) & 1;
-  uint32_t flag = k1_fetch_g(rows, tab_x, tab_y, tab_ok, g0 & kRowMask, odd);
+  uint32_t flag =
+      pair_fetch_row(rows, tab_x, tab_y, tab_ok, g0 & kRowMask, odd);
 
   k1fe qcx, qcy, qdx, qdy;
   const uint16_t *row = pts + i * 64;
@@ -133,40 +90,40 @@ __global__ void __launch_bounds__(kBlock, 4) secp256k1_hybrid_verify_kernel(
   // T[12] = T[8] + Qd and T[j + k] = T[j + k - 1] + Qc
   k1pt T[8], a, b;
   k1pt_identity(a);
-  k1_row_put(T, 0, a, odd);
+  pair_row_put(T, 0, a, odd);
   a.X = qcx; a.Y = qcy; k1_one(a.Z);
-  k1_row_put(T, 1, a, odd);
+  pair_row_put(T, 1, a, odd);
   k1pt_dbl_pair(a, a, odd);
-  k1_row_put(T, 2, a, odd);
+  pair_row_put(T, 2, a, odd);
   k1pt_madd_pair(a, a, qcx, qcy, odd);
-  k1_row_put(T, 3, a, odd);
+  pair_row_put(T, 3, a, odd);
   a.X = qdx; a.Y = qdy; k1_one(a.Z);
-  k1_row_put(T, 4, a, odd);
+  pair_row_put(T, 4, a, odd);
 #pragma unroll 1
   for (int k = 5; k < 8; ++k) {
     k1pt_madd_pair(a, a, qcx, qcy, odd);
-    k1_row_put(T, k, a, odd);
+    pair_row_put(T, k, a, odd);
   }
   a.X = qdx; a.Y = qdy; k1_one(a.Z);
   k1pt_dbl_pair(a, a, odd);
-  k1_row_put(T, 8, a, odd);
+  pair_row_put(T, 8, a, odd);
   k1pt_madd_pair(b, a, qdx, qdy, odd);
-  k1_row_put(T, 12, b, odd);
+  pair_row_put(T, 12, b, odd);
 #pragma unroll 1
   for (int k = 9; k < 12; ++k) {
     k1pt_madd_pair(a, a, qcx, qcy, odd);
-    k1_row_put(T, k, a, odd);
+    pair_row_put(T, k, a, odd);
   }
 #pragma unroll 1
   for (int k = 13; k < 16; ++k) {
     k1pt_madd_pair(b, b, qcx, qcy, odd);
-    k1_row_put(T, k, b, odd);
+    pair_row_put(T, k, b, odd);
   }
 
   // outer step s: 4 x (2 doublings + 1 Q add), then one G add; step 0
   // starts from the identity, so its first Q add is the entry itself
   k1pt acc;
-  k1_row_get(acc, T, q_bits[i] & 15, odd);
+  pair_row_get(acc, T, q_bits[i] & 15, odd);
 #pragma unroll 1
   for (int s = 0; s < 16; ++s) {
 #pragma unroll 1
@@ -174,20 +131,20 @@ __global__ void __launch_bounds__(kBlock, 4) secp256k1_hybrid_verify_kernel(
       const int digit = q_bits[(s * 4 + k) * n + i] & 15;
       k1pt_dbl_pair(acc, acc, odd);
       k1pt_dbl_pair(acc, acc, odd);
-      k1_row_get(a, T, digit, odd);
+      pair_row_get(a, T, digit, odd);
       k1pt_add_pair(acc, acc, a, odd);
     }
     cp_async_wait_all();
     __syncwarp();
     k1fe x2, y2;
-    k1_row_fe(x2, rows);
-    k1_row_fe(y2, rows + 2);
+    row_fe(x2, rows);
+    row_fe(y2, rows + 2);
     k1pt_madd_pair(a, acc, x2, y2, odd);
     if (flag) acc = a;
     __syncwarp();
     if (s < 15)
-      flag = k1_fetch_g(rows, tab_x, tab_y, tab_ok,
-                        g_idx[(s + 1) * n + i] & kRowMask, odd);
+      flag = pair_fetch_row(rows, tab_x, tab_y, tab_ok,
+                            g_idx[(s + 1) * n + i] & kRowMask, odd);
   }
 
   // accept: Z != 0 and X == r*Z or, where r + n < p, X == (r + n)*Z

@@ -75,11 +75,6 @@ __device__ __forceinline__ uint32_t r1_fetch_g(
   return __ldg((which ? lo_ok : hi_ok) + row);
 }
 
-__device__ __forceinline__ void r1_row_fe(p256fe &o, const uint4 *r) {
-  o.v[0] = r[0].x; o.v[1] = r[0].y; o.v[2] = r[0].z; o.v[3] = r[0].w;
-  o.v[4] = r[1].x; o.v[5] = r[1].y; o.v[6] = r[1].z; o.v[7] = r[1].w;
-}
-
 __global__ void __launch_bounds__(kBlock, 4) secp256r1_split_verify_kernel(
     const int32_t *__restrict__ g_idx, const uint8_t *__restrict__ q_digits,
     const uint16_t *__restrict__ q_x, const uint16_t *__restrict__ q_y,
@@ -140,12 +135,12 @@ __global__ void __launch_bounds__(kBlock, 4) secp256r1_split_verify_kernel(
     if (odd) f_hi = other; else f_lo = other;
     p256fe x2, y2;
     r1pt sum;
-    r1_row_fe(x2, rows[0]);
-    r1_row_fe(y2, rows[0] + 2);
+    row_fe(x2, rows[0]);
+    row_fe(y2, rows[0] + 2);
     r1pt_madd_pair(sum, acc, x2, y2, odd);
     if (f_hi) acc = sum;
-    r1_row_fe(x2, rows[1]);
-    r1_row_fe(y2, rows[1] + 2);
+    row_fe(x2, rows[1]);
+    row_fe(y2, rows[1] + 2);
     r1pt_madd_pair(sum, acc, x2, y2, odd);
     if (f_lo) acc = sum;
     __syncwarp();

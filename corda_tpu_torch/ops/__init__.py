@@ -14,8 +14,9 @@
   (``csrc/secp256r1_split.cu``), windowed (``csrc/weierstrass_windowed.cu``),
   Shamir (``csrc/weierstrass_shamir.cu``) and GLV
   (``csrc/secp256k1_glv.cu``), over the shared point formulas of
-  ``csrc/curve_k1.cuh`` and ``curve_p256.cuh``: host preps, G tables,
-  plain versions, CUDA kernel wrappers and the batch entry points
+  ``csrc/curve_k1_pair.cuh`` and ``curve_p256_pair.cuh`` (``curve_k1.cuh``
+  for GLV): host preps, G tables, plain versions, CUDA kernel wrappers and
+  the batch entry points
 
 Importing this package builds nothing and touches no device.
 """

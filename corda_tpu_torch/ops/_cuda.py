@@ -22,8 +22,8 @@ def bind_verify(target: str, n_ptrs: int, with_int: bool = False):
     """Build (at first use) and bind a verify kernel's library: its C
     launcher ``<target>_verify`` takes ``n_ptrs`` device pointers, the
     verdict pointer, n, (with ``with_int``, an int: the curve id of the
-    two-curve kernels, the lanes a signature of B2) and the stream. Raises
-    :class:`BuildError` when the library cannot be built."""
+    two-curve kernels, the lanes a signature of B2 and B7 Shamir) and the
+    stream. Raises :class:`BuildError` when the library cannot be built."""
     lib = _build.load(target)
     fn = getattr(lib, f"{target}_verify")
     fn.restype = ctypes.c_int
@@ -68,8 +68,8 @@ def launch_verify(lib, fn_name: str, args, n: int, device,
                   int_arg: int | None = None) -> torch.Tensor:
     """Run the C launcher ``<prefix>_verify`` on the current stream of
     ``device`` (passing ``int_arg`` after n: the curve id of the two-curve
-    kernels, the lanes a signature of B2); returns ok (n,) bool without
-    synchronising, or raises LaunchError."""
+    kernels, the lanes a signature of B2 and B7 Shamir); returns ok (n,)
+    bool without synchronising, or raises LaunchError."""
     ok = torch.empty(n, dtype=torch.bool, device=device)
     extra = () if int_arg is None else (int_arg,)
     with torch.cuda.device(device):
@@ -80,10 +80,15 @@ def launch_verify(lib, fn_name: str, args, n: int, device,
     return ok
 
 
-def split_lanes(lib, n: int) -> int:
-    """Lanes a signature B2's launcher is given for an ``n``-item batch
-    (``ed25519_split_lanes``: lane pairs up to its threshold, else one)."""
-    fn = lib.ed25519_split_lanes
+#: The libraries whose kernel takes the lanes a signature by batch size
+#: (``<target>_lanes(n)``): lane pairs up to a threshold, one lane above.
+LANES_BY_SIZE = ("ed25519_split", "ed25519_shamir")
+
+
+def lanes_for(lib, target: str, n: int) -> int:
+    """Lanes a signature the launcher of ``target`` (one of LANES_BY_SIZE)
+    runs for an ``n``-item batch (``<target>_lanes(n)``)."""
+    fn = getattr(lib, f"{target}_lanes")
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_int64]
     return fn(n)
@@ -98,8 +103,8 @@ def geometry(target: str, n: int, curve_id: int | None = None) -> dict:
     lib = _build.load(target)
     block = getattr(lib, f"{target}_block")()
     occ = getattr(lib, f"{target}_occupancy")
-    if target == "ed25519_split":
-        lanes = split_lanes(lib, n)
+    if target in LANES_BY_SIZE:
+        lanes = lanes_for(lib, target, n)
         occ.argtypes = [ctypes.c_int, ctypes.c_int]
         blocks = occ(block, lanes)
     else:

@@ -14,7 +14,9 @@ service path):
 
 The two B7 verifiers run the whole 256-bit scalars: ``verify_core`` (the
 Shamir ladder over MSB-first bit planes, projective acceptance against the
-host-decoded R; prep ``prepare_batch``) and ``verify_core_windowed`` (w = 16
+host-decoded R; prep ``prepare_batch``; its kernel reads the planes as
+4-bit windows and runs lane pairs up to a batch-size threshold, one lane
+above, counted in ``verify_core.launches_by_lanes``) and ``verify_core_windowed`` (w = 16
 windows of s over B's Niels table, 2-bit digits of k over {O, −A, −2A,
 −3A}, re-encoding acceptance; prep ``prepare_batch_windowed``). They are the
 per-shard work of the sharded path (``corda_tpu_torch.parallel``).
@@ -357,7 +359,7 @@ def verify_core_split_cuda(bb_idx, a_packed, rows, r_packed,
             *((f"table {k}", torch.uint16, table) for k in range(6)))
     cu.check_args(spec, args, bb_idx.device)
     lib = load_kernel()
-    lanes = cu.split_lanes(lib, n)
+    lanes = cu.lanes_for(lib, "ed25519_split", n)
     ok = cu.launch_verify(lib, "ed25519_split_verify", args, n,
                           bb_idx.device, lanes)
     with _LAUNCH_LOCK:
@@ -471,9 +473,18 @@ def verify_core_windowed_plain(b_idx, a_digits, neg_a, r_y, r_sign,
 
 @functools.lru_cache(maxsize=1)
 def load_shamir_kernel():
-    """The Shamir kernel's library, built from ``csrc/`` at first use.
-    Raises :class:`BuildError` when it cannot be built."""
-    return cu.bind_verify("ed25519_shamir", 8)
+    """The Shamir kernels' library (one lane and lane pairs), built from
+    ``csrc/`` at first use and held against the plain version on known
+    answers on the current CUDA device (:mod:`.known_answers`). Raises
+    :class:`BuildError` when it cannot be built or gives a wrong answer."""
+    from . import known_answers
+    lib = cu.bind_verify("ed25519_shamir", 8, with_int=True)
+    device = torch.device("cuda", torch.cuda.current_device())
+    known_answers.check_ed25519_shamir(
+        lambda args, n, lanes: cu.launch_verify(
+            lib, "ed25519_shamir_verify", args, n, device, lanes),
+        device)
+    return lib
 
 
 @functools.lru_cache(maxsize=1)
@@ -485,7 +496,8 @@ def load_windowed_kernel():
 
 def verify_core_cuda(s_bits, k_bits, neg_a, r_affine) -> torch.Tensor:
     """Launch the hand-written Hopper kernel B7 (Shamir) on the current
-    stream of the arguments' device; returns ok (B,) bool without
+    stream of the arguments' device, on the lanes a signature
+    ``ed25519_shamir_lanes(n)`` picks; returns ok (B,) bool without
     synchronising. Raises when the kernel does not build or the launch is
     refused."""
     n = int(s_bits.shape[-1])
@@ -498,10 +510,13 @@ def verify_core_cuda(s_bits, k_bits, neg_a, r_affine) -> torch.Tensor:
     if len(args) != 8:
         raise ValueError("neg_a takes 4 coordinates, r_affine 2")
     cu.check_args(spec, args, s_bits.device)
-    ok = cu.launch_verify(load_shamir_kernel(), "ed25519_shamir_verify",
-                          args, n, s_bits.device)
+    lib = load_shamir_kernel()
+    lanes = cu.lanes_for(lib, "ed25519_shamir", n)
+    ok = cu.launch_verify(lib, "ed25519_shamir_verify", args, n,
+                          s_bits.device, lanes)
     with _LAUNCH_LOCK:
         verify_core.launches += 1
+        verify_core.launches_by_lanes[lanes] += 1
     return ok
 
 
@@ -520,7 +535,10 @@ def verify_core(s_bits, k_bits, neg_a, r_affine) -> torch.Tensor:
     raise ValueError(f"unsupported device {s_bits.device}")
 
 
+#: Kernel launches through the wrapper (the CPU path launches nothing), in
+#: all and by lanes a signature: 1 the one-lane kernel, 2 the lane pairs.
 verify_core.launches = 0
+verify_core.launches_by_lanes = {1: 0, 2: 0}
 verify_core.build_count = lambda: _build.build_count("ed25519_shamir")
 
 

@@ -1,13 +1,14 @@
-"""Known answers for freshly loaded signature kernels (B2, B3, B4, B8 Shamir).
+"""Known answers for freshly loaded signature kernels (B2, B3, B4, B5, B7
+Shamir, B8 Shamir).
 
 The kernels are compiled at first use by the toolkit of the machine that runs
-them. Before a B2, B3, B4 or B8 Shamir library gives its first verdict in a
-process, a fixed batch runs through every kernel behind its launcher (B2 on
-one lane and on lane pairs, B3 and B4 on lane pairs, B8 on lane pairs for
-each curve) and through the kernel's plain PyTorch version on the CPU. The batch holds
-valid signatures, tampered ones, and items whose host precheck fails, whose
-wire rows the prep zeroes or fills with placeholders (and for B3 signatures
-whose x(R) = r + n, for B8 keys G and -G). The
+them. Before such a library gives its first verdict in a process, a fixed
+batch runs through every kernel behind its launcher (B2 and B7 Shamir on one
+lane and on lane pairs, B3 and B4 on lane pairs, B5 and B8 on lane pairs for
+each curve) and through the kernel's plain PyTorch version on the CPU. The
+batch holds valid signatures, tampered ones, and items whose host precheck
+fails, whose wire rows the prep zeroes or fills with placeholders (and for
+B3 and B5 signatures whose x(R) = r + n, for B5 and B8 keys G and -G). The
 raw verdicts (before the precheck mask) must agree on every row, or the library
 is refused with :class:`BuildError`. The lane-pair kernels run on the Comba
 field, which was exact in every build tried; large one-thread kernels on the
@@ -124,8 +125,8 @@ def r1_items() -> tuple:
 @functools.lru_cache(maxsize=1)
 def k1_items() -> tuple:
     """secp256k1 items of :func:`_ecdsa_items`, then a valid and an
-    invalid signature with x(R) = r + n (rn_ok set: B3 accepts the valid
-    one through its r + n candidate)."""
+    invalid signature with x(R) = r + n (rn_ok set: B3 and B5 accept the
+    valid one through their r + n candidate)."""
     curve = ecmath.SECP256K1
     return tuple(_ecdsa_items(curve, b"k1")
                  + [_crafted_rn(curve, b"k1", True),
@@ -196,4 +197,36 @@ def check_shamir(launch, device) -> None:
                                     curve.name)
         args = wc.wire_to_device(wire, device)
         _held("weierstrass_shamir", f"{curve.name}, lane pairs",
+              launch(args, len(items), curve_id), want)
+
+
+def check_ed25519_shamir(launch, device) -> None:
+    """Hold B7 Shamir against its plain version on :func:`ed25519_items`:
+    ``launch(args, n, lanes)`` runs the kernel on ``lanes`` lanes a
+    signature and returns its raw verdicts; raises BuildError on any
+    difference."""
+    items = ed25519_items()
+    *wire, _ = ed.prepare_batch(list(items))
+    cpu = ed.b7_to_device(wire, "cpu")
+    want = ed.verify_core_plain(*cpu)
+    args = tuple(t.to(device) for t in (cpu[0], cpu[1], *cpu[2], *cpu[3]))
+    for lanes in (1, 2):
+        _held("ed25519_shamir", f"{lanes} lane(s) a signature",
+              launch(args, len(items), lanes), want)
+
+
+def check_windowed(launch, device) -> None:
+    """Hold B5 against its plain version on :func:`k1_items` and
+    :func:`r1_items`: ``launch(args, n, curve_id)`` runs the kernel of the
+    curve and returns its raw verdicts; raises BuildError on any
+    difference."""
+    for curve_id, (curve, items) in enumerate(
+            ((ecmath.SECP256K1, k1_items()), (ecmath.SECP256R1, r1_items()))):
+        *wire, _ = wc.prepare_batch_windowed_single(curve, list(items))
+        tabs = wc.windowed_tables(curve, device)
+        want = wc.verify_core_windowed_single_plain(
+            *wc.wire_to_device(wire, "cpu"), *(t.cpu() for t in tabs),
+            curve.name)
+        args = (*wc.wire_to_device(wire, device), *tabs)
+        _held("weierstrass_windowed", f"{curve.name}, lane pairs",
               launch(args, len(items), curve_id), want)

@@ -1078,8 +1078,17 @@ def verify_core_windowed_single_plain(g_idx, q_digits, q_x, q_y, r_limbs,
 @functools.lru_cache(maxsize=1)
 def load_windowed_kernel():
     """The windowed kernel's library (both curves), built from ``csrc/`` at
-    first use. Raises :class:`BuildError` when it cannot be built."""
-    return cu.bind_verify("weierstrass_windowed", 9, with_int=True)
+    first use and held against the plain version on known answers on the
+    current CUDA device (:mod:`.known_answers`). Raises
+    :class:`BuildError` when it cannot be built or gives a wrong answer."""
+    from . import known_answers
+    lib = cu.bind_verify("weierstrass_windowed", 9, with_int=True)
+    device = torch.device("cuda", torch.cuda.current_device())
+    known_answers.check_windowed(
+        lambda args, n, curve_id: cu.launch_verify(
+            lib, "weierstrass_windowed_verify", args, n, device, curve_id),
+        device)
+    return lib
 
 
 def verify_core_windowed_single_cuda(g_idx, q_digits, q_x, q_y, r_limbs,

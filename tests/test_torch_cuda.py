@@ -7,8 +7,9 @@ torch.cuda.is_available() is False). On a machine with an NVIDIA GPU:
 lacks.)
 
 Each CUDA kernel (B2 Ed25519, B3 secp256k1, B4 secp256r1, B5 windowed and
-B8 Shamir/GLV ECDSA — B3, B4 and B8 Shamir on lane pairs, B2 on lane pairs
-or one lane by batch size —, B6 SHA-256/Merkle, B7 Ed25519 Shamir and windowed)
+B8 Shamir/GLV ECDSA — B3, B4, B5 and B8 Shamir on lane pairs, B2 and B7
+Shamir on lane pairs or one lane by batch size —, B6 SHA-256/Merkle, B7
+Ed25519 Shamir and windowed)
 must give the same results as its plain PyTorch version, bit for bit (B10,
 the SIMM margin, too: both round every float32 operation in one order);
 the batcher's device routes
@@ -808,14 +809,107 @@ def test_b3_and_b8_lane_pairs_match_plain_versions_at_every_size(cuda, name,
     assert list(ok.cpu().numpy() & precheck[idx]) == [want[i] for i in idx]
 
 
+# -- B7 Shamir on one lane and on lane pairs, B5 on lane pairs --------------
+
+B7_THRESHOLD = [16383, 16384, 16385]
+
+
+@pytest.mark.parametrize("lanes", [1, 2])
+@pytest.mark.parametrize("n", RAGGED + B7_THRESHOLD)
+def test_b7_shamir_lane_variants_match_plain_version_at_ragged_sizes(
+        cuda, n, lanes):
+    """Each B7 Shamir kernel (one lane, lane pairs; forced through the
+    launcher's lanes argument) equals the plain version bit for bit,
+    raw, at ragged sizes and at the lane threshold +-1, on adversarial
+    items (s >= L, R y >= p, undecodable keys and R among them)."""
+    from corda_tpu_torch.ops import _cuda
+    from corda_tpu_torch.ops import ed25519 as ed
+    items, want = _ed_adversarial(44, 96)
+    *wire, precheck = ed.prepare_batch(items)
+    assert not precheck.all()
+    s_bits, k_bits, neg_a, r_aff = ed.b7_to_device(wire, "cpu")
+    idx = torch.from_numpy(np.arange(n) % len(items))
+    args = [s_bits[:, idx], k_bits[:, idx], *(c[idx] for c in neg_a),
+            *(c[idx] for c in r_aff)]
+    args = [a.contiguous().to(cuda) for a in args]
+    ok = _cuda.launch_verify(ed.load_shamir_kernel(),
+                             "ed25519_shamir_verify", args, n, cuda, lanes)
+    torch.cuda.synchronize()
+    plain = ed.verify_core_plain(args[0], args[1], args[2:6], args[6:8])
+    assert torch.equal(ok.cpu(), plain.cpu())
+    got = ok.cpu().numpy() & precheck[idx.numpy()]
+    assert list(got) == [want[i] for i in idx.numpy()]
+
+
+def test_b7_shamir_wrapper_counts_the_lanes_its_size_selects(cuda):
+    """verify_core picks lane pairs up to the threshold and one lane above
+    it, and counts each launch under the lanes it ran."""
+    from corda_tpu_torch.ops import _cuda
+    from corda_tpu_torch.ops import ed25519 as ed
+    items, want = _ed_adversarial(44, 97)
+    *wire, precheck = ed.prepare_batch(items)
+    s_bits, k_bits, neg_a, r_aff = ed.b7_to_device(wire, "cpu")
+    lanes_of = {n: _cuda.geometry("ed25519_shamir", n)["lanes"]
+                for n in B7_THRESHOLD + [1, 32768]}
+    assert lanes_of[1] == 2 and lanes_of[32768] == 1
+    assert (lanes_of[16383], lanes_of[16385]) == (2, 1)
+    for n in (16384, 16385):
+        idx = torch.from_numpy(np.arange(n) % len(items))
+        args = [s_bits[:, idx], k_bits[:, idx], tuple(c[idx] for c in neg_a),
+                tuple(c[idx] for c in r_aff)]
+        args = ed.b7_to_device(args, cuda)
+        before = dict(ed.verify_core.launches_by_lanes)
+        ok = ed.verify_core(*args)
+        torch.cuda.synchronize()
+        after = ed.verify_core.launches_by_lanes
+        moved = {k: after[k] - before[k] for k in (1, 2)}
+        assert moved == {k: int(k == lanes_of[n]) for k in (1, 2)}
+        assert torch.equal(ok.cpu(), ed.verify_core_plain(*args).cpu())
+
+
+@pytest.mark.parametrize("n", RAGGED + [32768])
+@pytest.mark.parametrize("name", ["secp256k1", "secp256r1"])
+def test_b5_lane_pairs_match_plain_versions_at_every_size(cuda, name, n):
+    """Both B5 instantiations run two lanes a signature at every size; raw
+    verdicts equal the plain version's on the known-answer items
+    (precheck failures, x(R) = r + n, keys G and -G) and signed ones,
+    tiled to ragged sizes and to 32768, and the wrapper counts one
+    launch."""
+    from corda_tpu_torch.ops import _cuda
+    from corda_tpu_torch.ops import known_answers as ka
+    from corda_tpu_torch.ops import weierstrass as wc
+    curve = ecmath.SECP256K1 if name == "secp256k1" else ecmath.SECP256R1
+    items = list(ka.k1_items() if curve is ecmath.SECP256K1
+                 else ka.r1_items()) + _ecdsa_items(curve, 12, 98)
+    want = [pub is not None and ecmath.ecdsa_verify(curve, pub, msg, r, s)
+            for pub, msg, r, s in items]
+    *wire, precheck = wc.prepare_batch_windowed_single(curve, items)
+    wire = _tile_wire(wire, (1, 2, 0, 0, 0, 0), n)
+    assert _cuda.geometry("weierstrass_windowed", n,
+                          0 if curve is ecmath.SECP256K1 else 1)["lanes"] == 2
+    args = [torch.from_numpy(a).to(cuda) for a in wire]
+    tail = (*wc.windowed_tables(curve, cuda), curve.name)
+    fn = wc.verify_core_windowed_single
+    before = fn.launches
+    ok = fn(*args, *tail)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    assert torch.equal(ok.cpu(),
+                       wc.verify_core_windowed_single_plain(*args,
+                                                            *tail).cpu())
+    idx = np.arange(n) % len(items)
+    assert list(ok.cpu().numpy() & precheck[idx]) == [want[i] for i in idx]
+
+
 @pytest.mark.parametrize("target", ["ed25519_split", "secp256r1_split",
-                                    "secp256k1_hybrid", "weierstrass_shamir"])
+                                    "secp256k1_hybrid", "weierstrass_shamir",
+                                    "ed25519_shamir", "weierstrass_windowed"])
 def test_a_library_that_fails_its_known_answers_is_refused(
         cuda, monkeypatch, target):
-    """A freshly loaded B2, B3, B4 or B8 Shamir library whose raw verdicts
-    differ from the plain version's on the known-answer batch raises
-    BuildError and gives no verdict (here the plain version is made to
-    disagree)."""
+    """A freshly loaded B2, B3, B4, B5, B7 Shamir or B8 Shamir library
+    whose raw verdicts differ from the plain version's on the known-answer
+    batch raises BuildError and gives no verdict (here the plain version is
+    made to disagree)."""
     from corda_tpu_torch import _build
     from corda_tpu_torch.ops import ed25519 as ed
     from corda_tpu_torch.ops import weierstrass as wc
@@ -827,8 +921,13 @@ def test_a_library_that_fails_its_known_answers_is_refused(
     elif target == "secp256k1_hybrid":
         mod, plain, load = wc, "verify_core_hybrid_wide_plain", \
             wc.load_hybrid_kernel
-    else:
+    elif target == "weierstrass_shamir":
         mod, plain, load = wc, "verify_core_plain", wc.load_shamir_kernel
+    elif target == "ed25519_shamir":
+        mod, plain, load = ed, "verify_core_plain", ed.load_shamir_kernel
+    else:
+        mod, plain, load = wc, "verify_core_windowed_single_plain", \
+            wc.load_windowed_kernel
     real = getattr(mod, plain)
     monkeypatch.setattr(mod, plain, lambda *a: ~real(*a))
     load.cache_clear()

@@ -113,8 +113,8 @@ def test_cuda_header_constants_match_ecmath():
     """The device headers' constant words are the host constants: 2d and
     p of edwards25519, p and n of secp256k1, p and b of P-256, in the
     one-thread fields and in the pair kernels' Comba fields (with
-    2^256 - p of P-256), and the generators of both curves in the one-thread
-    and the pair formulas."""
+    2^256 - p of P-256), and the generators of both curves (with P-256's
+    order) in the one-thread and the pair formulas."""
     from corda_tpu_torch.core.crypto import ecmath
     words = _header_words("field25519.cuh")
     assert words("FE_D2") == ecmath.ED_D2
@@ -141,6 +141,7 @@ def test_cuda_header_constants_match_ecmath():
     for header in ("curve_p256.cuh", "curve_p256_pair.cuh"):
         words = _header_words(header)
         assert (words("P256_GX"), words("P256_GY")) == ecmath.SECP256R1.g
+        assert words("P256_N") == ecmath.SECP256R1.n
 
 
 def _edges(p):

@@ -1,11 +1,11 @@
-"""The known-answer batches that a freshly loaded B2, B3, B4 or B8 Shamir
-library must pass before its first verdict
+"""The known-answer batches that a freshly loaded B2, B3, B4, B5, B7 Shamir
+or B8 Shamir library must pass before its first verdict
 (corda_tpu_torch/ops/known_answers.py), on the CPU: the batches hold valid,
-tampered and precheck-failed items (and x(R) = r + n signatures for B3, keys
-G and -G for B8) whose masked verdicts equal the host oracle's, and the
-check passes a kernel equal to the plain version and refuses one that
-differs on a single raw verdict. On the card the same check runs against
-the built kernels (tests/test_torch_cuda.py).
+tampered and precheck-failed items (and x(R) = r + n signatures for B3 and
+B5, keys G and -G for B5 and B8) whose masked verdicts equal the host
+oracle's, and the check passes a kernel equal to the plain version and
+refuses one that differs on a single raw verdict. On the card the same
+check runs against the built kernels (tests/test_torch_cuda.py).
 """
 import pytest
 import torch
@@ -81,6 +81,35 @@ def test_shamir_batches_masked_verdicts_equal_the_host_oracle(curve_name):
     assert curve.g in keys and curve.mul(curve.n - 1, curve.g) in keys
 
 
+def test_ed25519_shamir_batch_masked_verdicts_equal_the_host_oracle():
+    """B7 Shamir's known-answer batch through its own prep."""
+    items = list(ka.ed25519_items())
+    *wire, precheck = ed.prepare_batch(items)
+    raw = ed.verify_core_plain(*ed.b7_to_device(wire, CPU)).numpy()
+    want = [ecmath.ed25519_verify(p, m, s) for p, s, m in items]
+    assert list(raw & precheck) == want
+    assert 0 < sum(want) < len(items) and not precheck.all()
+
+
+@pytest.mark.parametrize("curve_name", ["secp256k1", "secp256r1"])
+def test_windowed_batches_masked_verdicts_equal_the_host_oracle(curve_name):
+    """B5's batches, one a curve, through the windowed prep: keys G and -G
+    among them, and for secp256k1 the x(R) = r + n pair (rn_ok set), whose
+    valid signature is accepted through the r + n candidate."""
+    curve = wc.CURVES[curve_name]
+    items = list(ka.k1_items() if curve_name == "secp256k1"
+                 else ka.r1_items())
+    *wire, precheck = wc.prepare_batch_windowed_single(curve, items)
+    raw = wc.verify_core_windowed_single_plain(
+        *wc.wire_to_device(wire, CPU), *wc.windowed_tables(curve, CPU),
+        curve_name).numpy()
+    want = _ecdsa_oracle(curve, items)
+    assert list(raw & precheck) == want
+    assert 0 < sum(want) < len(items) and not precheck.all()
+    if curve_name == "secp256k1":
+        assert wire[5][-2:].all() and want[-2:] == [True, False]
+
+
 def _memo_plain(plain):
     """A stand-in kernel: the plain version, computed once for each first
     argument's shape."""
@@ -94,8 +123,14 @@ def _memo_plain(plain):
     return run
 
 
+def _shamir_plain(*args):
+    """B7 Shamir's plain version on the launcher's eight flat tensors."""
+    return ed.verify_core_plain(args[0], args[1], args[2:6], args[6:8])
+
+
 @pytest.mark.parametrize("target", ["ed25519_split", "secp256r1_split",
-                                    "secp256k1_hybrid", "weierstrass_shamir"])
+                                    "secp256k1_hybrid", "weierstrass_shamir",
+                                    "ed25519_shamir", "weierstrass_windowed"])
 def test_check_passes_the_plain_version_and_refuses_one_wrong_verdict(
         target):
     if target == "ed25519_split":
@@ -131,9 +166,24 @@ def test_check_passes_the_plain_version_and_refuses_one_wrong_verdict(
                 return ok
             ka.check_hybrid(launch, CPU)
         wrong = [True]
+    elif target == "ed25519_shamir":
+        kernel = _memo_plain(_shamir_plain)
+
+        def check(flip_lanes):
+            def launch(args, n, lanes):
+                ok = kernel(args)
+                if lanes == flip_lanes:
+                    ok[n // 2] = ~ok[n // 2]
+                return ok
+            ka.check_ed25519_shamir(launch, CPU)
+        wrong = [1, 2]
     else:
-        kernel = _memo_plain(wc.verify_core_plain)
         names = ("secp256k1", "secp256r1")
+        if target == "weierstrass_shamir":
+            kernel, held = _memo_plain(wc.verify_core_plain), ka.check_shamir
+        else:
+            kernel = _memo_plain(wc.verify_core_windowed_single_plain)
+            held = ka.check_windowed
 
         def check(flip_curve):
             def launch(args, n, curve_id):
@@ -141,7 +191,7 @@ def test_check_passes_the_plain_version_and_refuses_one_wrong_verdict(
                 if curve_id == flip_curve:
                     ok[n - 1] = ~ok[n - 1]
                 return ok
-            ka.check_shamir(launch, CPU)
+            held(launch, CPU)
         wrong = [0, 1]
     check(None)
     for flip in wrong:

@@ -28,15 +28,18 @@ Phases (any failure exits non-zero; nothing is caught):
              Verdicts bit-identical and equal to the
              construction; CUDA-event medians of both versions, the
              card's least time for the same work, and each launch's lanes
-             a signature and warps a multiprocessor (B2 and B7 Shamir run
-             lane pairs up to 16384 items, one lane above, and B7 Shamir is
-             timed at 16384 too; B3, B4, B5 and B8 Shamir run lane pairs at
-             every size). B5 and B7 Shamir are also held raw against their
-             plain versions at the ragged sizes 1, 31, 33, 4095 and 4097
-             (B7 Shamir at its lane threshold +-1 too). A freshly loaded
-             B2, B3, B4, B5, B7 Shamir or B8 Shamir library has also been
-             held against its plain version on known answers
-             (ops/known_answers.py).
+             a signature and warps a multiprocessor (B2 and both B7
+             kernels run lane pairs up to 16384 items, one lane above, and
+             both B7 kernels are timed at 16384 too; B3, B4, B5 and both
+             B8 kernels run lane pairs at every size). B5 and B8 GLV are
+             also held raw against their plain versions at the ragged
+             sizes 1, 31, 33, 4095 and 4097, and both B7 libraries with
+             each lane variant forced at those sizes, their lane
+             threshold +-1 and every bucket (both variants timed in turns
+             at the threshold). The plain versions are timed at the
+             buckets the kernels line reads. A freshly loaded signature
+             library has also been held against its plain version on
+             known answers (ops/known_answers.py).
              Then B10 (SIMM margin)
              on the demo book and seeded books of 1024, 2^16 and 2^20
              trades: equal to its plain version bit for bit (and so within
@@ -54,9 +57,9 @@ Phases (any failure exits non-zero; nothing is caught):
              to hashlib.
 3. modes   — weierstrass.verify_batch for every (curve, mode) on 32768
              items (1/16 tampered): secp256k1 hybrid, windowed, plain and
-             glv, secp256r1 halfgcd, windowed and plain (plain and
-             windowed once more on 1024 items, for the 1024 rows of B8
-             Shamir and B5). One warm-up pass,
+             glv, secp256r1 halfgcd, windowed and plain (plain, windowed
+             and glv once more on 1024 items, for the 1024 rows of B8 and
+             B5). One warm-up pass,
              two timed passes in turns (secp256r1: halfgcd, windowed,
              windowed, halfgcd); verdicts equal to the construction and
              exactly the mode's kernel launched in every run (counts set to
@@ -82,8 +85,8 @@ Phases (any failure exits non-zero; nothing is caught):
              and the secp256k1/secp256r1 word-form wrappers on 32768 items
              (equal to the construction and the unsharded verify_batch),
              the sharded B7 Shamir and windowed callables on a prepared
-             32768 batch (B7 Shamir on one lane for the 32768-item shard,
-             on lane pairs for the two 16384-item ones, counted by lanes),
+             32768 batch (one lane for the 32768-item shard, lane pairs for
+             the two 16384-item ones, counted by lanes),
              sharded_merkle_root on 2^20 leaves (equal to
              hashlib and merkle_root), tx_verify_step on 32768 signatures
              and 2^17 leaves, and SignatureBatcher(mesh=...) bulk groups
@@ -115,17 +118,21 @@ Phases (any failure exits non-zero; nothing is caught):
              recording device activity for the rest of a process).
 8. ab      — only with --ab PARENT (a directory holding an earlier commit's
              corda_tpu_torch/csrc, e.g. unpacked by git archive): that
-             commit's B3, B5, B7 Shamir and B8 Shamir kernels built beside
-             this checkout's and timed on the same inputs in turns at 256
-             to 32768 items (B5 and B8 for each curve, B7 Shamir on each
-             of its lane variants) after a raw bit-identity check, and the
+             commit's B3, B5, both B7 and both B8 kernels built beside this
+             checkout's, each side's launcher bound by its own signature
+             in its source, and timed on the same inputs in turns at 256
+             to 32768 items (B5 and B8 Shamir for each curve; a side whose
+             launcher takes the lanes runs each lane variant as a side of
+             its own) after a raw bit-identity check, with each side's
+             warps a multiprocessor and the parents' ptxas report; and the
              interactive 1k latency of the secp256k1 service path with the
              parent's B3 behind the wrapper and with this checkout's, in
              turns (parent, change, change, parent).
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. ``--only-kernels`` runs phases 1 and 2 only,
-for the named kernels (and phase 8 with --ab), and prints neither. Without CUDA, or outside a checkout of the
+for the named kernels (and phase 8 with --ab, for those kernels), and
+prints neither. Without CUDA, or outside a checkout of the
 repository, it prints no result and exits non-zero.
 """
 from __future__ import annotations
@@ -166,27 +173,36 @@ def imad_per_sig(products: int, squarings: int, fold: int) -> int:
 #: B2 (csrc/ed25519_split.cu): 1303 products, 766 squarings; wire arrays
 #: bb_idx 64, a_packed 64, rows 192, r_packed 32 and the verdict, plus the
 #: six Niels tables once. The bound counts the least work known for the
-#: function: the reference's ladder, or B7 Shamir's 4-bit windows, which
-#: need less than its bit ladder. ``design_imad``: what a kernel's design
-#: issues where it differs from the bound's count, by lanes a signature
-#: (B2, B3, B4, B5, B7 Shamir and B8 r1 on lane pairs run some products on
-#: both lanes: 1406 products and 1020 squarings for B2, 1850 and 256 for
-#: B3, 2330 and 262 for B4, 2588 and 518 for B5 k1, 4314 and 518 for B5
-#: r1, 2176 and 1008 for B7 Shamir, 6672 and 512 for B8 r1; the one-lane
-#: kernels of B2 and B7 Shamir square with a full product: 2069 and 3105
-#: products).
+#: function: the reference's ladder, or the B7 kernels' 4-bit windows over
+#: a cached -A table, which need less than the reference's ladders, each
+#: computing T = E H only where an addition reads it (Hisil-Wong-Carter-
+#: Dawson 2008 s. 4.3; ref10's p1p1-to-p2 conversion): not in a doubling
+#: or an addition that a doubling or the final acceptance follows.
+#: ``design_imad``: what a kernel's design issues where it differs from the
+#: bound's count, by lanes a signature (B2, B3, B4, B5, both B7 kernels and
+#: B8 r1 on lane pairs run some products on both lanes: 1406 products and
+#: 1020 squarings for B2, 1850 and 256 for B3, 2330 and 262 for B4, 2588
+#: and 518 for B5 k1, 4314 and 518 for B5 r1, 2176 and 1008 for B7 Shamir,
+#: 1816 and 1516 for B7 windowed, 6672 and 512 for B8 r1; the one-lane
+#: kernels of B2 and both B7 kernels square with a full product: 2069,
+#: 3105 and 3034 products; B8 GLV's and B8 k1's pairs run exactly the
+#: bound's products).
 #: B3 (csrc/secp256k1_hybrid.cu): 1823 products, 256 squarings; wire g_idx
 #: 64, q_bits 64, pts 128, r_limbs 32 and the verdict, plus each distinct
 #: G-table row gathered (x 32 + y 32 + flag 1 bytes).
 #: B4 (csrc/secp256r1_split.cu): 2044 products, 393 squarings; wire g_idx
 #: 64, q_digits 32, q_x/q_y 64, xd 32 and the verdict, plus each distinct
 #: row gathered from the G and G' tables.
-#: B7 Shamir (csrc/ed25519_shamir.cu): 2097 products, 1008 squarings (4-bit
-#: Straus windows; the reference's bit ladder needs 3339 and 1024); wire
-#: s/k bit planes 512, -A 128, R 64 and the verdict. B7 windowed
-#: (csrc/ed25519_windowed.cu): 2297 products, 1274 squarings; wire b_idx
-#: 64, a_digits 128, -A 128, r_y 32, r_sign 1 and the verdict, plus each
-#: distinct Niels row gathered (96 bytes).
+#: B7 Shamir (csrc/ed25519_shamir.cu): 1844 products, 1008 squarings (4-bit
+#: Straus windows, T skipped in 189 doublings and 64 cached additions; the
+#: kernels compute every T, 2097 products; the reference's bit ladder needs
+#: 3339 and 1024); wire s/k bit planes 512, -A 128, R 64 and the verdict.
+#: B7 windowed (csrc/ed25519_windowed.cu): 1519 products, 1262 squarings
+#: (4-bit windows of k over a cached -A table, T skipped in 189 doublings
+#: and 64 additions; the kernels compute every T, 1772 products; the
+#: reference's 2-bit digits need 2297 and 1274); wire b_idx 64, a_digits
+#: 128, -A 128, r_y 32, r_sign 1 and the verdict, plus each distinct Niels
+#: row gathered (96 bytes).
 #: B8 Shamir (csrc/weierstrass_shamir.cu): secp256k1 4622 products, 512
 #: squarings; secp256r1 6160 and 768; wire u1/u2 bit planes 512, q_pts 96,
 #: r_cands 64 and the verdict. B8 GLV (csrc/secp256k1_glv.cu): 2438
@@ -244,15 +260,17 @@ KERNELS = {
         "replaces": "corda_tpu/ops/weierstrass.py:508",
         "lib": "secp256k1_glv", "curve": "secp256k1", "mode": "glv"},
     "ed25519_shamir_verify": {
-        "imad": imad_per_sig(2097, 1008, 8), "wire": 512 + 128 + 64 + 1,
+        "imad": imad_per_sig(1844, 1008, 8), "wire": 512 + 128 + 64 + 1,
         "design_imad": {1: imad_per_sig(3105, 0, 8),
                         2: imad_per_sig(2176, 1008, 8)},
         "source": "corda_tpu_torch/csrc/ed25519_shamir.cu",
         "replaces": "corda_tpu/ops/ed25519.py:383", "lib": "ed25519_shamir",
         "ladder": "shamir"},
     "ed25519_windowed_verify": {
-        "imad": imad_per_sig(2297, 1274, 8),
+        "imad": imad_per_sig(1519, 1262, 8),
         "wire": 64 + 128 + 128 + 32 + 1 + 1,
+        "design_imad": {1: imad_per_sig(3034, 0, 8),
+                        2: imad_per_sig(1816, 1516, 8)},
         "source": "corda_tpu_torch/csrc/ed25519_windowed.cu",
         "replaces": "corda_tpu/ops/ed25519.py:238",
         "lib": "ed25519_windowed", "ladder": "windowed"},
@@ -260,35 +278,41 @@ KERNELS = {
 #: Rows of the kernels line beside KERNELS' (read at 32768): lane-pair
 #: kernels read at the interactive 1024 bucket — B2's pairs (the
 #: ``ed25519_split_verify`` row is its one-lane kernel), with launches by
-#: lanes a signature, and B3, B5 and B8 Shamir (pairs at every size), with
-#: the launches of their paths' 1024-item batches —, and B7 Shamir's pairs
-#: at 16384 (the ``ed25519_shamir_verify`` row is its one-lane kernel),
-#: the shard of the 2-shard mesh, with launches by lanes a signature.
+#: lanes a signature, and B3, B5 and both B8 kernels (pairs at every
+#: size), with the launches of their paths' 1024-item batches —, and the
+#: B7 kernels' pairs at 16384 (their 32768 rows are their one-lane
+#: kernels), the shard of the 2-shard mesh, with launches by lanes a
+#: signature.
 PAIR_ROWS = {"ed25519_split_verify_pairs": ("ed25519_split_verify", 1024),
              "ed25519_shamir_verify_pairs": ("ed25519_shamir_verify", 16384),
+             "ed25519_windowed_verify_pairs": ("ed25519_windowed_verify",
+                                               16384),
              **{f"{name}_1024": (name, 1024)
                 for name in ("secp256k1_hybrid_verify",
                              "secp256k1_shamir_verify",
                              "secp256r1_shamir_verify",
                              "secp256k1_windowed_verify",
-                             "secp256r1_windowed_verify")}}
-#: Sizes at which phase 2 also holds B5 and B7 Shamir raw against their
-#: plain versions (no timing): ragged edges of a block of lane pairs, and
-#: B7 Shamir's lane threshold (kPairItems) +-1.
+                             "secp256r1_windowed_verify",
+                             "secp256k1_glv_verify")}}
+#: Sizes at which phase 2 also holds B5 and B8 GLV raw against their plain
+#: versions (no timing): ragged edges of a block of lane pairs; the B7
+#: kernels are held there too, each lane variant forced, and at their lane
+#: threshold (kPairItems) +-1.
 RAGGED = (1, 31, 33, 4095, 4097)
-RAGGED_KERNELS = {"ed25519_shamir_verify": (16383, 16385),
-                  "secp256k1_windowed_verify": (),
-                  "secp256r1_windowed_verify": ()}
+RAGGED_KERNELS = ("secp256k1_windowed_verify", "secp256r1_windowed_verify",
+                  "secp256k1_glv_verify")
+B7_THRESHOLD = (16383, 16385)
 #: The verify_batch modes that the modes phase also runs on MODE_SMALL
 #: items, for their kernels' 1024 rows.
-SMALL_MODES = ("plain", "windowed")
+SMALL_MODES = ("plain", "windowed", "glv")
 MODE_SMALL = 1024
 #: --ab: the libraries an earlier commit's kernels are built from (their
-#: launchers' wire pointers; the two-curve launchers of TWO_CURVE_LIBS
-#: also take a curve id), the buckets of the kernel A/B, and the order of
-#: its turns.
+#: launchers' wire pointers; each side's launcher may also take an int,
+#: read from its source by ``c_int_params``), the buckets of the kernel
+#: A/B, and the order of its turns.
 AB_LIBS = {"secp256k1_hybrid": 7, "weierstrass_shamir": 4,
-           "ed25519_shamir": 8, "weierstrass_windowed": 9}
+           "ed25519_shamir": 8, "weierstrass_windowed": 9,
+           "ed25519_windowed": 11, "secp256k1_glv": 3}
 AB_BUCKETS = (256, 1024, 4096, 16384, 32768)
 AB_TURNS = ("parent", "change", "change", "parent")
 #: The B7 kernels: an adversarial batch of B7_DISTINCT signed items (1/16
@@ -307,8 +331,7 @@ MODE_PAIRS = (("secp256k1", "hybrid"), ("secp256k1", "windowed"),
               ("secp256r1", "halfgcd"), ("secp256r1", "windowed"),
               ("secp256r1", "plain"))
 MODE_BATCH = 32768
-#: The libraries holding one kernel per curve, and their curve ids.
-TWO_CURVE_LIBS = ("weierstrass_windowed", "weierstrass_shamir")
+#: The curve ids of the launchers that take one.
 CURVE_IDS = {"secp256k1": 0, "secp256r1": 1}
 NIELS_TABLE_BYTES = 6 * 65536 * 32
 G_ROW_BYTES = 32 + 32 + 1
@@ -669,8 +692,11 @@ def compare_kernel(name, kernel, plain, args, tables, bucket, table_bytes,
     k, p = hold_kernel(name, kernel, plain, args, tables, bucket, final_fn,
                        want)
     ms = time_cuda(lambda: kernel(*args, *tables), RUNS)
-    plain_ms = time_cuda(lambda: plain(*args, *tables),
-                         2 if bucket == 32768 else 1)
+    # the plain version is timed at the buckets the kernels line reads
+    plain_ms = (time_cuda(lambda: plain(*args, *tables),
+                          2 if bucket == 32768 else 1)
+                if bucket == 32768 or (name, bucket) in PAIR_ROWS.values()
+                else None)
     bms, by = bound_ms(name, bucket, table_bytes)
     err = int(abs(k.astype(int) - p.astype(int)).max())
     row = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
@@ -681,25 +707,51 @@ def compare_kernel(name, kernel, plain, args, tables, bucket, table_bytes,
     return row
 
 
-def kernel_geometry(name: str, n: int) -> dict:
-    """Lanes a signature and warps a multiprocessor of ``name``'s launch
-    at ``n`` items: the fewer of what one multiprocessor holds at once
-    (the occupancy calculator) and the launched warps spread over every
+def launch_geometry(lib, source: str, target: str, n: int, lanes: int,
+                    int_arg) -> dict:
+    """Threads a block and warps a multiprocessor of one launch of
+    ``target``'s kernel (library ``lib``, C source text ``source``) at
+    ``n`` items on ``lanes`` lanes a signature, with the int its
+    launcher takes (``int_arg``): the fewer of what one multiprocessor
+    holds at once (``<target>_occupancy``, the occupancy calculator, bound
+    by its source) and the launched warps spread over every
     multiprocessor."""
+    import ctypes
     import torch
+    block = getattr(lib, f"{target}_block")()
+    occ = getattr(lib, f"{target}_occupancy")
+    occ.argtypes = [ctypes.c_int] * len(c_int_params(
+        source, f"{target}_occupancy"))
+    blocks = occ(block, *([int_arg] if len(occ.argtypes) == 2 else []))
+    if blocks < 0:
+        raise SystemExit(f"{target}_occupancy failed")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    resident = blocks * block / 32
+    return {"lanes": lanes, "block": block,
+            "resident_warps_per_sm": resident,
+            "warps_per_sm": min(resident,
+                                -(-n * lanes // block) * block / 32 / sms)}
+
+
+def kernel_geometry(name: str, n: int) -> dict:
+    """:func:`launch_geometry` of this checkout's ``name`` at ``n`` items,
+    on the lanes its launcher picks, and the design's IMAD a signature on
+    them."""
+    from corda_tpu_torch import _build
     from corda_tpu_torch.ops import _cuda
     meta = KERNELS[name]
-    curve = (CURVE_IDS[meta["curve"]] if meta["lib"] in TWO_CURVE_LIBS
-             else None)
-    g = _cuda.geometry(meta["lib"], n, curve)
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    blocks = -(-n * g["lanes"] // g["block"])
-    resident = g["blocks_per_sm"] * g["block"] / 32
-    return {"lanes": g["lanes"], "block": g["block"],
-            "resident_warps_per_sm": resident,
-            "warps_per_sm": min(resident, blocks * g["block"] / 32 / sms),
+    target = meta["lib"]
+    lib = _build.load(target)
+    with open(os.path.join(_build.CSRC, f"{target}.cu")) as f:
+        source = f.read()
+    offered = dict(launch_variants(lib, source, target,
+                                   CURVE_IDS.get(meta.get("curve"))))
+    lanes = (_cuda.lanes_for(lib, target, n) if len(offered) == 2
+             else next(iter(offered)))
+    return {**launch_geometry(lib, source, target, n, lanes,
+                              offered[lanes]),
             "design_imad_per_sig": meta.get("design_imad", {}).get(
-                g["lanes"], meta["imad"])}
+                lanes, meta["imad"])}
 
 
 def ecdsa_kernel_batch(curve, base, bucket: int, seed: int):
@@ -1351,34 +1403,63 @@ def b7_case(ed, name: str, prep, want, n: int, dev):
             ed.windowed_table(dev), rows * NIELS_ROW_BYTES, precheck, wantn)
 
 
-def hold_b7_shamir_lanes(ed, prep, want, sizes, dev, card) -> None:
-    """B7 Shamir's two kernels, each forced through the launcher's lanes
+def hold_b7_lanes(ed, name, prep, want, sizes, timed, dev, card) -> None:
+    """A B7 library's two kernels, each forced through the launcher's lanes
     argument whatever its threshold picks, against the plain version at
-    each of ``sizes`` (raw bit-identity and the masked verdicts; no
-    timing, no launch counted)."""
+    each of ``sizes`` (raw bit-identity and the masked verdicts; no launch
+    counted), and its dispatcher at the threshold +-1 (B7_THRESHOLD: the
+    lanes it picks there logged from its counts); at the sizes of
+    ``timed`` also both kernels' CUDA-event medians in turns (1, 2, 2, 1
+    lanes), which set the threshold."""
     import torch
     from corda_tpu_torch.ops import _cuda as cu
-    name = "ed25519_shamir_verify"
-    lib = ed.load_shamir_kernel()
+    if KERNELS[name]["ladder"] == "shamir":
+        lib, plain, tabs = ed.load_shamir_kernel(), ed.verify_core_plain, ()
+        dispatcher = ed.verify_core
+    else:
+        lib, plain = ed.load_windowed_kernel(), ed.verify_core_windowed_plain
+        tabs = ed.windowed_table(dev)
+        dispatcher = ed.verify_core_windowed
+    dispatched = {}
     for n in sizes:
         *wire, precheck = take_batch(prep, B7_AXES[name], n)
-        s_bits, k_bits, neg_a, r_aff = ed.b7_to_device(wire, dev)
-        args = (s_bits, k_bits, *neg_a, *r_aff)
-        p = ed.verify_core_plain(s_bits, k_bits, neg_a, r_aff).cpu().numpy()
+        dargs = ed.b7_to_device(wire, dev)
+        args = (*ed.b7_flat(dargs), *tabs)
+        p = plain(*dargs, *tabs).cpu().numpy()
         wantn = [want[i % len(want)] for i in range(n)]
-        for lanes in (1, 2):
-            ok = cu.launch_verify(lib, name, args, n, dev, lanes)
+        runs = {f"{lanes} lane(s)": lambda lanes=lanes: cu.launch_verify(
+            lib, name, args, n, dev, lanes) for lanes in (1, 2)}
+        if n in B7_THRESHOLD:
+            runs["the dispatcher"] = lambda: dispatcher(*dargs, *tabs)
+            before = dict(dispatcher.launches_by_lanes)
+        for label, run in runs.items():
+            ok = run()
             torch.cuda.synchronize()
             k = ok.cpu().numpy()
             if not (k == p).all():
-                raise SystemExit(f"{name} on {lanes} lane(s) disagrees with "
-                                 f"its plain version at {n} items: "
+                raise SystemExit(f"{name} on {label} disagrees with its "
+                                 f"plain version at {n} items: "
                                  f"{(k != p).sum()} verdicts")
             if list(k & precheck) != wantn:
-                raise SystemExit(f"{name} on {lanes} lane(s) disagrees with "
-                                 f"the construction at {n} items")
+                raise SystemExit(f"{name} on {label} disagrees with the "
+                                 f"construction at {n} items")
+        if n in B7_THRESHOLD:
+            dispatched[n] = [k for k, v in dispatcher.launches_by_lanes.items()
+                             if v != before[k]]
+        if n in timed:
+            runs = {1: [], 2: []}
+            for lanes in (1, 2, 2, 1):
+                runs[lanes].append(time_cuda(
+                    lambda lanes=lanes: cu.launch_verify(lib, name, args, n,
+                                                         dev, lanes), RUNS))
+            log(json.dumps({"kernel": name, "items": n, "lanes_ms": {
+                k: statistics.median(r) for k, r in runs.items()},
+                "lanes_ms_runs": runs, "card": card}))
     log(json.dumps({"kernel": name, "forced_lanes": [1, 2],
-                    "raw_identical_at": list(sizes), "card": card}))
+                    "raw_identical_at": list(sizes),
+                    "wrapper_lanes": [kernel_geometry(name, n)["lanes"]
+                                      for n in sizes],
+                    "dispatcher_lanes": dispatched, "card": card}))
 
 
 def simm_book(simm, n: int, seed: int):
@@ -1602,8 +1683,8 @@ def mesh_phase(dev, card, seed: int, base, ec_base, b7) -> tuple:
                         for it in ec[name][0]] for name in schemes}
     out = {"card": card, "items": MESH_BATCH, "dataset_s":
            time.perf_counter() - t0, "meshes": {}}
-    b7_launches = {name: 0 for name in B7_KERNELS}
-    b7_launches["ed25519_shamir_verify_pairs"] = 0
+    b7_launches = {row: 0 for name in B7_KERNELS
+                   for row in (name, name + "_pairs")}
 
     def counted(label, counters, fn):
         """Run ``fn`` with ``counters``' launch counts (and counts by lanes
@@ -1623,15 +1704,11 @@ def mesh_phase(dev, card, seed: int, base, ec_base, b7) -> tuple:
                              f"{got}")
         return result, wall, got
 
-    def count_b7(name, counter, n_launch):
-        """Add a B7 path's launches to its kernel's row; B7 Shamir's by
-        lanes a signature (its pairs have a row of their own)."""
-        if counter is ed.verify_core:
-            by_lanes = counter.launches_by_lanes
-            b7_launches[name] += by_lanes[1]
-            b7_launches[name + "_pairs"] += by_lanes[2]
-        else:
-            b7_launches[name] += n_launch
+    def count_b7(name, counter):
+        """Add a B7 path's launches to its kernel's rows, by lanes a
+        signature (the pairs have a row of their own)."""
+        b7_launches[name] += counter.launches_by_lanes[1]
+        b7_launches[name + "_pairs"] += counter.launches_by_lanes[2]
 
     for size in MESH_SIZES:
         mesh = par.make_mesh(devices=[dev] * size)
@@ -1672,7 +1749,7 @@ def mesh_phase(dev, card, seed: int, base, ec_base, b7) -> tuple:
             if list(ok & precheck) != b7_want:
                 raise SystemExit(f"mesh {size}: sharded {label} verdicts "
                                  "disagree with the construction")
-            count_b7(label + "_verify", counter, n_launch)
+            count_b7(label + "_verify", counter)
             row[label] = {"wall_s": wall, "verifies_per_s": MESH_BATCH / wall,
                           "launches": n_launch}
         root, wall, (n_launch,) = counted(
@@ -1691,7 +1768,7 @@ def mesh_phase(dev, card, seed: int, base, ec_base, b7) -> tuple:
                 or sha.digests_to_bytes(root[None])[0]
                 != host_roots[TX_LEAVES]):
             raise SystemExit(f"mesh {size}: tx_verify_step disagrees")
-        count_b7("ed25519_shamir_verify", ed.verify_core, n_sig)
+        count_b7("ed25519_shamir_verify", ed.verify_core)
         row["tx_verify_step"] = {"signatures": MESH_BATCH,
                                  "leaves": TX_LEAVES, "wall_s": wall,
                                  "launches": [n_sig, n_root]}
@@ -1745,24 +1822,60 @@ def mesh_phase(dev, card, seed: int, base, ec_base, b7) -> tuple:
     return out, b7_launches
 
 
-def build_parent_kernels(parent: str) -> dict:
+def c_int_params(source: str, fn: str) -> list[str]:
+    """The names of the ``int`` parameters, in order, of the C function
+    ``fn`` defined in ``source`` (a .cu file's text): for a verify launcher
+    ``<target>_verify(ptrs..., ok, n, [int,] stream)`` the int it takes
+    between n and the stream ("lanes", "curve") or none, for
+    ``<target>_occupancy`` "block" and that int. Binds each side of phase
+    8 by its own launcher, whatever the commit it comes from."""
+    import re
+    m = re.search(rf"\bint\s+{fn}\s*\(([^)]*)\)\s*\{{", source)
+    if m is None:
+        raise SystemExit(f"no C function {fn} in the source")
+    words = [p.split() for p in m.group(1).split(",")]
+    return [w[-1] for w in words if len(w) == 2 and w[0] == "int"]
+
+
+def launch_variants(lib, source: str, target: str,
+                    curve_id: int | None = None) -> list[tuple]:
+    """(lanes a signature, int argument) of each launch that
+    ``<target>_verify`` offers, as its source (``source``) declares it:
+    one a lane count, 1 and 2, where it takes the lanes; else the lanes of
+    its ``<target>_lanes()`` with the curve id where it takes one, or no
+    int. The one place that decides the int of a launcher, for this
+    checkout's kernels and an earlier commit's."""
+    ints = c_int_params(source, f"{target}_verify")
+    if ints == ["lanes"]:
+        return [(1, 1), (2, 2)]
+    lanes = getattr(lib, f"{target}_lanes")()
+    if ints == ["curve"]:
+        return [(lanes, curve_id)]
+    if not ints:
+        return [(lanes, None)]
+    raise SystemExit(f"{target}_verify takes {ints}")
+
+
+def build_parent_kernels(parent: str) -> tuple[dict, dict]:
     """nvcc, all at once, on the AB_LIBS sources of an earlier commit
-    (``parent``/corda_tpu_torch/csrc) into corda_tpu_torch/_build/ab/;
-    returns {target: library}, each launcher bound as this checkout's
-    (``<target>_verify(ptrs..., ok, n, stream)``; the two-curve ones
-    ``<target>_verify(ptrs..., ok, n, curve, stream)``)."""
+    (``parent``/corda_tpu_torch/csrc) into corda_tpu_torch/_build/ab/,
+    logging ptxas's report of each; returns ({target: library}, {target:
+    source text}), each launcher bound by the int parameters its own
+    source gives it (:func:`c_int_params`)."""
     import ctypes
     from corda_tpu_torch import _build
     from corda_tpu_torch.ops import _cuda
     src = os.path.join(parent, "corda_tpu_torch", "csrc")
     out_dir = os.path.join(_build.BUILD_DIR, "ab")
     os.makedirs(out_dir, exist_ok=True)
-    procs = {}
+    procs, sources = {}, {}
     for target in AB_LIBS:
+        path = os.path.join(src, f"{target}.cu")
+        with open(path) as f:
+            sources[target] = f.read()
         out = os.path.join(out_dir, f"lib{target}-parent.so")
         procs[target] = (out, subprocess.Popen(
-            [_build.nvcc_path(), *_build._NVCC_FLAGS, "-o", out,
-             os.path.join(src, f"{target}.cu")],
+            [_build.nvcc_path(), *_build._NVCC_FLAGS, "-o", out, path],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     libs = {}
     for target, (out, proc) in procs.items():
@@ -1770,57 +1883,72 @@ def build_parent_kernels(parent: str) -> dict:
         if proc.returncode != 0:
             raise SystemExit(f"building the parent's {target} failed:\n{text}")
         for line in text.splitlines():
-            if "registers" in line or "spill" in line or "stack frame" in line:
+            if any(w in line for w in ("entry function", "registers",
+                                       "spill", "stack frame")):
                 log(f"ptxas parent {target}: {line.strip()}")
         lib = ctypes.CDLL(out)
         fn = getattr(lib, f"{target}_verify")
         fn.restype = ctypes.c_int
         fn.argtypes = ([ctypes.c_void_p] * (AB_LIBS[target] + 1)
                        + [ctypes.c_int64]
-                       + [ctypes.c_int] * (target in TWO_CURVE_LIBS)
+                       + [ctypes.c_int] * len(c_int_params(
+                           sources[target], f"{target}_verify"))
                        + [ctypes.c_void_p])
         _cuda.bind_error_string(lib, target)
         libs[target] = lib
-    return libs
+    return libs, sources
 
 
-def ab_phase(parent: str, dev, card, seed: int, ec_base, b7) -> dict:
+def ab_phase(parent: str, dev, card, seed: int, ec_base, b7,
+             wanted=lambda name: True) -> dict:
     """Phase 8 (--ab): an earlier commit's B3, B5 (both curves), B7 Shamir
-    and B8 Shamir (both curves) against this checkout's. Kernels: at each
-    AB_BUCKETS bucket, on phase 2's adversarial batches (B7: its tiled
-    batch), every side's raw verdicts equal the plain version's, then
-    CUDA-event medians in turns (forward, then backward); this checkout's
-    B7 Shamir runs as two sides, one lane and lane pairs, whatever its
-    threshold picks. Interactive 1k secp256k1 groups through one
-    SignatureBatcher, the earlier B3 behind the wrapper or this checkout's,
-    in AB_TURNS order after a warm-up; p50 and p99 per side."""
+    and windowed, and B8 Shamir (both curves) and GLV against this
+    checkout's. Kernels: at each AB_BUCKETS bucket, on phase 2's
+    adversarial batches (B7: its tiled batch), every side's raw verdicts
+    equal the plain version's, then CUDA-event medians in turns (forward,
+    then backward); each side's launcher is bound by its own source's
+    signature, and a side whose launcher takes the lanes runs as two
+    sides, one lane and lane pairs, whatever its threshold picks; each
+    side's lanes and warps a multiprocessor are logged with its times.
+    Interactive 1k secp256k1 groups through one SignatureBatcher, the
+    earlier B3 behind the wrapper or this checkout's, in AB_TURNS order
+    after a warm-up; p50 and p99 per side. Only the kernels ``wanted``
+    names run (the interactive groups with B3's)."""
     import torch
+    from corda_tpu_torch import _build
     from corda_tpu_torch.core.crypto import ecmath
     from corda_tpu_torch.core.crypto.schemes import ECDSA_SECP256K1_SHA256
     from corda_tpu_torch.ops import _cuda as cu
     from corda_tpu_torch.ops import ed25519 as ed
     from corda_tpu_torch.ops import weierstrass as wc
     from corda_tpu_torch.verifier import SignatureBatcher
-    libs = build_parent_kernels(parent)
+    libs, sources = build_parent_kernels(parent)
     mine = {"secp256k1_hybrid": wc.load_hybrid_kernel(),
             "weierstrass_shamir": wc.load_shamir_kernel(),
             "weierstrass_windowed": wc.load_windowed_kernel(),
-            "ed25519_shamir": ed.load_shamir_kernel()}
+            "ed25519_shamir": ed.load_shamir_kernel(),
+            "ed25519_windowed": ed.load_windowed_kernel(),
+            "secp256k1_glv": wc.load_glv_kernel()}
+    mine_src = {}
+    for target in AB_LIBS:
+        with open(os.path.join(_build.CSRC, f"{target}.cu")) as f:
+            mine_src[target] = f.read()
+    sides = {"parent": (libs, sources), "change": (mine, mine_src)}
 
     def variants(target, n, curve_id=None):
-        return {side: (lambda args, lib=lib: cu.launch_verify(
-                    lib, f"{target}_verify", args, n, dev, curve_id))
-                for side, lib in (("parent", libs[target]),
-                                  ("change", mine[target]))}
-
-    def b7_variants(n):
-        fns = {"parent": lambda args: cu.launch_verify(
-            libs["ed25519_shamir"], "ed25519_shamir_verify", args, n, dev)}
-        for lanes in (1, 2):
-            fns[f"change_{lanes}_lane"] = (
-                lambda args, lanes=lanes: cu.launch_verify(
-                    mine["ed25519_shamir"], "ed25519_shamir_verify", args, n,
-                    dev, lanes))
+        """{side name: (launch(args), lanes, warps a multiprocessor)}; a
+        side that offers both lane counts runs as two sides."""
+        fns = {}
+        for side, (side_libs, side_src) in sides.items():
+            lib, source = side_libs[target], side_src[target]
+            runs = launch_variants(lib, source, target, curve_id)
+            for lanes, int_arg in runs:
+                name = side if len(runs) == 1 else f"{side}_{lanes}_lane"
+                fns[name] = (
+                    lambda args, lib=lib, int_arg=int_arg: cu.launch_verify(
+                        lib, f"{target}_verify", args, n, dev, int_arg),
+                    lanes, launch_geometry(lib, source, target, n, lanes,
+                                           int_arg)["warps_per_sm"])
         return fns
     out = {"card": card, "kernels": {}, "interactive": {}}
     for bucket in AB_BUCKETS:
@@ -1835,6 +1963,10 @@ def ab_phase(parent: str, dev, card, seed: int, ec_base, b7) -> dict:
                 cases["secp256k1_hybrid_verify"] = (
                     args, wc.verify_core_hybrid_wide_plain,
                     variants("secp256k1_hybrid", bucket))
+                *wire, _ = wc.prepare_batch_glv(items)
+                cases["secp256k1_glv_verify"] = (
+                    wc.wire_to_device(wire, dev), wc.verify_core_glv_plain,
+                    variants("secp256k1_glv", bucket))
             *wire, _ = wc.prepare_batch(curve, items)
             args = wc.wire_to_device(wire, dev)
             cases[f"{name}_shamir_verify"] = (
@@ -1849,14 +1981,23 @@ def ab_phase(parent: str, dev, card, seed: int, ec_base, b7) -> dict:
                 variants("weierstrass_windowed", bucket, CURVE_IDS[name]))
         *wire, _ = take_batch(b7[0]["ed25519_shamir_verify"],
                               B7_AXES["ed25519_shamir_verify"], bucket)
-        s_bits, k_bits, neg_a, r_aff = ed.b7_to_device(wire, dev)
         cases["ed25519_shamir_verify"] = (
-            (s_bits, k_bits, *neg_a, *r_aff),
+            ed.b7_flat(ed.b7_to_device(wire, dev)),
             lambda *a: ed.verify_core_plain(a[0], a[1], a[2:6], a[6:8]),
-            b7_variants(bucket))
+            variants("ed25519_shamir", bucket))
+        *wire, _ = take_batch(b7[0]["ed25519_windowed_verify"],
+                              B7_AXES["ed25519_windowed_verify"], bucket)
+        cases["ed25519_windowed_verify"] = (
+            (*ed.b7_flat(ed.b7_to_device(wire, dev)),
+             *ed.windowed_table(dev)),
+            lambda *a: ed.verify_core_windowed_plain(a[0], a[1], a[2:6],
+                                                     *a[6:]),
+            variants("ed25519_windowed", bucket))
         for name, (args, plain, fns) in cases.items():
+            if not wanted(name):
+                continue
             want = plain(*args).cpu()
-            for v, fn in fns.items():
+            for v, (fn, _, _) in fns.items():
                 got = fn(args)
                 torch.cuda.synchronize()
                 if not torch.equal(got.cpu(), want):
@@ -1864,12 +2005,16 @@ def ab_phase(parent: str, dev, card, seed: int, ec_base, b7) -> dict:
                                      f"plain version at bucket {bucket}")
             runs = {v: [] for v in fns}
             for v in [*fns, *reversed(fns)]:
-                runs[v].append(time_cuda(lambda v=v: fns[v](args), RUNS))
+                runs[v].append(time_cuda(lambda v=v: fns[v][0](args), RUNS))
             row = {"ms": {v: statistics.median(r) for v, r in runs.items()},
-                   "ms_runs": runs}
+                   "ms_runs": runs,
+                   "lanes": {v: f[1] for v, f in fns.items()},
+                   "warps_per_sm": {v: f[2] for v, f in fns.items()}}
             out["kernels"].setdefault(name, {})[bucket] = row
             log(json.dumps({"ab_kernel": name, "bucket": bucket, **row,
                             "card": card}))
+    if not wanted("secp256k1_hybrid_verify"):
+        return out
 
     curve = ecmath.SECP256K1
     items, want = tile(
@@ -1924,8 +2069,8 @@ def main() -> int:
                          "and print no result line (a short check of "
                          "kernels on the card)")
     ap.add_argument("--ab", default=None, metavar="PARENT",
-                    help="also time an earlier commit's B3, B5, B7 Shamir "
-                         "and B8 Shamir kernels "
+                    help="also time an earlier commit's B3, B5, B7 and B8 "
+                         "kernels "
                          "(PARENT/corda_tpu_torch/csrc) against this "
                          "checkout's, and the secp256k1 interactive "
                          "latency with each B3 (phase 8)")
@@ -2086,40 +2231,40 @@ def main() -> int:
             per_kernel[name][bucket] = compare_kernel(
                 name, kernel, plain, dargs, tail, bucket, tbytes,
                 lambda k, pre=precheck: k & pre, want, card)
-    # B5 and B7 Shamir held raw at ragged sizes and B7's lane threshold
-    for name, extra in RAGGED_KERNELS.items():
+    # B5 and B8 GLV held raw at ragged sizes
+    for name in RAGGED_KERNELS:
         if not wanted(name):
             continue
-        for n in RAGGED + extra:
-            if "ladder" in KERNELS[name]:
-                (kernel, plain, dargs, tail, _, precheck,
-                 want) = b7_case(ed, name, b7[0][name], b7[1], n, dev)
-            else:
-                curve = _curve(KERNELS[name]["curve"])
-                items, want = ragged_base[curve.name]
-                items = [items[j % len(items)] for j in range(n)]
-                want = [want[j % len(want)] for j in range(n)]
-                (kernel, plain, dargs, tail, _,
-                 precheck) = mode_kernel_case(wc, curve, "windowed", items,
-                                              dev)
+        curve = _curve(KERNELS[name]["curve"])
+        for n in RAGGED:
+            items, want = ragged_base[curve.name]
+            items = [items[j % len(items)] for j in range(n)]
+            want = [want[j % len(want)] for j in range(n)]
+            (kernel, plain, dargs, tail, _,
+             precheck) = mode_kernel_case(wc, curve, KERNELS[name]["mode"],
+                                          items, dev)
             hold_kernel(name, kernel, plain, dargs, tail, n,
                         lambda k, pre=precheck: k & pre, want)
-        log(json.dumps({"kernel": name, "raw_identical_at": RAGGED + extra,
-                        "lanes": [kernel_geometry(name, n)["lanes"]
-                                  for n in RAGGED + extra], "card": card}))
-    # B7 Shamir: both kernels forced, at every size above and every bucket
-    if wanted("ed25519_shamir_verify"):
-        hold_b7_shamir_lanes(
-            ed, b7[0]["ed25519_shamir_verify"], b7[1],
-            RAGGED + RAGGED_KERNELS["ed25519_shamir_verify"] + BUCKETS
-            + (ROW_BUCKETS["ed25519_shamir_verify"],), dev, card)
+        log(json.dumps({"kernel": name, "raw_identical_at": RAGGED,
+                        "card": card}))
+    # the B7 kernels: both lane variants forced, at the ragged sizes, the
+    # lane threshold +-1 and every bucket, and timed in turns at the
+    # threshold +-1, 16384 and 32768
+    for name in B7_KERNELS:
+        if wanted(name):
+            hold_b7_lanes(ed, name, b7[0][name], b7[1],
+                          RAGGED + B7_THRESHOLD + BUCKETS
+                          + (ROW_BUCKETS[name],),
+                          B7_THRESHOLD + (ROW_BUCKETS[name], 32768),
+                          dev, card)
     log("library_ms: null — no PyTorch call computes Ed25519 or ECDSA "
         "verification")
     if only is not None:
         t_phase = log_phase("kernels", t_phase)
         log(json.dumps({"kernels_checked": sorted(only)}))
         if args.ab is not None:
-            ab_phase(args.ab, dev, card, args.seed + 53, ec_base, b7)
+            ab_phase(args.ab, dev, card, args.seed + 53, ec_base, b7,
+                     wanted)
             log_phase("ab", t_phase)
         return 0
     b10_rows = b10_kernel_phase(dev, card, args.seed + 43)
@@ -2430,15 +2575,15 @@ def main() -> int:
     log(json.dumps({"path": "ecdsa", **ec_service}))
     t_phase = log_phase("service", t_phase)
 
-    # -- phase 8: an earlier commit's B3, B5, B7 Shamir and B8 Shamir -------
+    # -- phase 8: an earlier commit's B3, B5, B7 and B8 ----------------------
     if args.ab is not None:
         ab_phase(args.ab, dev, card, args.seed + 53, ec_base, b7)
         log_phase("ab", t_phase)
 
 
     # B3's 32768 row counts the service path's bulk launches, its 1024 row
-    # the interactive ones; B5's and B8 Shamir's rows the modes phase's
-    # 32768 and MODE_SMALL runs; B7 Shamir's rows the mesh phase's one-lane
+    # the interactive ones; B5's and B8's rows the modes phase's 32768 and
+    # MODE_SMALL runs; the B7 kernels' rows the mesh phase's one-lane
     # (32768-item shard) and lane-pair (16384-item shards) launches
     launches = {"ed25519_split_verify": ed_by_lanes[1],
                 "ed25519_split_verify_pairs": ed_by_lanes[2],

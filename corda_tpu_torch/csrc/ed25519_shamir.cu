@@ -46,24 +46,28 @@
 // A freshly built library runs known answers through both kernels against
 // the plain version before its first verdict (ops/known_answers.py).
 //
-// Bound: integer multiply throughput, counted on this schedule, the least
-// work known for the function: the -A table 15 cached forms x 1 + 14
-// cached additions x 8 = 127; window 0 a Niels addition (7) and a cached
-// addition (8); 63 windows x (4 doublings x (4 squarings + 4 products) +
-// 7 + 8); acceptance 2: 2097 products and 1008 squarings. A product needs
-// 64 + 8 wide 32x32->64 multiplies, a squaring 36 + 8, each counted as 2
-// IMAD issue slots: 2097 x 144 + 1008 x 88 = 390,672 IMAD a signature.
-// The reference's bit ladder (B - A 9; 256 doublings x (4 squarings + 4
-// products); 256 additions x 9; acceptance 2) needs 3339 products and
-// 1024 squarings, 570,928 IMAD. The one-lane kernel squares with a full
-// product: 3105 x 144 = 447,120 IMAD. The pair repeats each Niels
-// addition's T td (64) and each cached form's T 2d (15) on both lanes:
-// 2176 products and 1008 squarings, 402,048 IMAD.
+// Bound: integer multiply throughput, counted on the least work known for
+// the function: this schedule with T = E H computed only where an
+// addition reads it (Hisil-Wong-Carter-Dawson 2008 s. 4.3; ref10's
+// p1p1-to-p2 conversion), i.e. not in a doubling or cached addition that
+// a doubling or the acceptance follows: the -A table 15 cached forms x 1
+// + 14 cached additions x 8 = 127; window 0 a Niels addition (7) and a
+// cached addition (7); 63 windows x (3 doublings x (4 squarings + 3
+// products) + 1 doubling x (4 + 4) + 7 + 7); acceptance 2: 1844 products
+// and 1008 squarings. A product needs 64 + 8 wide 32x32->64 multiplies, a
+// squaring 36 + 8, each counted as 2 IMAD issue slots: 1844 x 144 + 1008 x
+// 88 = 354,240 IMAD a signature. The kernels compute every T (2097
+// products, 390,672 IMAD); the reference's bit ladder (B - A 9; 256
+// doublings x (4 squarings + 4 products); 256 additions x 9; acceptance 2)
+// needs 3339 products and 1024 squarings, 570,928 IMAD. The one-lane
+// kernel squares with a full product: 3105 x 144 = 447,120 IMAD. The pair
+// repeats each Niels addition's T td (64) and each cached form's T 2d (15)
+// on both lanes: 2176 products and 1008 squarings, 402,048 IMAD.
 // Bytes per signature: 512 of bit planes, 128 of -A, 64 of R, 1 verdict.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "curve_ed25519.cuh"
+#include "ed25519_windows.cuh"
 
 namespace pairs {
 #include "curve_ed25519_pair.cuh"
@@ -209,109 +213,6 @@ __device__ __forceinline__ int window_digit(const uint8_t *bits, int w,
   const uint8_t *p = bits + (int64_t)(4 * w) * n + i;
   return ((p[0] & 1) << 3) | ((p[n] & 1) << 2) | ((p[2 * n] & 1) << 1) |
          (p[3 * n] & 1);
-}
-
-// Helpers of both kernels, over either field's types: the one lane's
-// (csrc/curve_ed25519.cuh) or the pairs' (namespace pairs); argument-
-// dependent lookup picks that field's fe_add, fe_mul, fe_canon.
-
-// The cached identity (1, 1, 1, 0).
-template <class GC>
-__device__ __forceinline__ void ge_cached_identity(GC &o) {
-  fe_one(o.ymx);
-  fe_one(o.ypx);
-  fe_one(o.Z);
-  fe_zero(o.T2d);
-}
-
-// p in cached form (on both lanes of a pair): 1 product. Both fields keep
-// 2d in the same words, FE_D2.
-template <class GC, class GE>
-__device__ __forceinline__ void ge_to_cached(GC &o, const GE &p) {
-  auto d2 = p.T;
-#pragma unroll
-  for (int k = 0; k < 8; ++k) d2.v[k] = FE_D2[k];
-  fe_sub(o.ymx, p.Y, p.X);
-  fe_add(o.ypx, p.Y, p.X);
-  o.Z = p.Z;
-  fe_mul(o.T2d, p.T, d2);
-}
-
-// B's Niels row ``digit`` (y + x, y - x, 2dxy) from shared memory.
-template <class FE>
-__device__ __forceinline__ void load_b_row(FE &yp, FE &ym, FE &td,
-                                           const uint32_t *rows, int digit) {
-  const uint32_t *r = rows + digit * 24;
-#pragma unroll
-  for (int k = 0; k < 8; ++k) {
-    yp.v[k] = r[k];
-    ym.v[k] = r[8 + k];
-    td.v[k] = r[16 + k];
-  }
-}
-
-template <class FE>
-__device__ __forceinline__ bool fe_equal_canon(const FE &a, const FE &b) {
-  FE ca, cb;
-  fe_canon(ca, a);
-  fe_canon(cb, b);
-  uint32_t diff = 0;
-#pragma unroll
-  for (int k = 0; k < 8; ++k) diff |= ca.v[k] ^ cb.v[k];
-  return diff == 0;
-}
-
-// -- one lane a signature: csrc/curve_ed25519.cuh's field and formulas ---
-// The formulas below that csrc/curve_ed25519.cuh lacks live here, so that
-// the one-thread kernels that include that header (B2's one-lane kernel,
-// B7 windowed) keep building from unchanged sources.
-
-// A point in cached form (Y - X, Y + X, Z, 2d T): the addend of
-// ge_add_cached, whose T1 2d T2 is then one product.
-struct ge_cached {
-  fe ymx, ypx, Z, T2d;
-};
-
-// ge_add with a cached addend: 8 products.
-__device__ __noinline__ void ge_add_cached(ge &o, const ge &p,
-                                           const ge_cached &q) {
-  fe a, b, c, d, e, f, g, h;
-  fe_sub(a, p.Y, p.X);
-  fe_mul(a, a, q.ymx);
-  fe_add(b, p.Y, p.X);
-  fe_mul(b, b, q.ypx);
-  fe_mul(c, p.T, q.T2d);
-  fe_mul(d, p.Z, q.Z);
-  fe_mul_small(d, d, 2);
-  fe_sub(e, b, a);
-  fe_sub(f, d, c);
-  fe_add(g, d, c);
-  fe_add(h, b, a);
-  fe_mul(o.X, e, f);
-  fe_mul(o.Y, g, h);
-  fe_mul(o.Z, f, g);
-  fe_mul(o.T, e, h);
-}
-
-// ge_madd_niels on a Niels row (y + x, y - x, 2dxy) already loaded: 7
-// products.
-__device__ __noinline__ void ge_madd_row(ge &acc, const fe &yp, const fe &ym,
-                                         const fe &td) {
-  fe a, b, c, d, e, f, g, h;
-  fe_sub(a, acc.Y, acc.X);
-  fe_mul(a, a, ym);
-  fe_add(b, acc.Y, acc.X);
-  fe_mul(b, b, yp);
-  fe_mul(c, acc.T, td);
-  fe_mul_small(d, acc.Z, 2);
-  fe_sub(e, b, a);
-  fe_sub(f, d, c);
-  fe_add(g, d, c);
-  fe_add(h, b, a);
-  fe_mul(acc.X, e, f);
-  fe_mul(acc.Y, g, h);
-  fe_mul(acc.Z, f, g);
-  fe_mul(acc.T, e, h);
 }
 
 __global__ void __launch_bounds__(kBlock) ed25519_shamir_verify_kernel(

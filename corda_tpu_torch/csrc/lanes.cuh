@@ -115,19 +115,41 @@ __device__ __forceinline__ void pair_row_get(P &o, const P T[8], int k,
   }
 }
 
-// Starts the copy of row ``row`` of an affine table (tab_x, tab_y: 16
-// u16 limbs a coordinate; tab_ok: a flag a row) into rows (x: rows[0..1],
-// y: rows[2..3]; the even lane copies x, the odd lane y) and returns the
-// row's flag. The pair reads rows after cp_async_wait_all and __syncwarp.
+// Starts the copy of row ``row`` of two coordinates (tab_x, tab_y: 16 u16
+// limbs a coordinate) into rows (x: rows[0..1], y: rows[2..3]; the even
+// lane copies x, the odd lane y).
+__device__ __forceinline__ void pair_fetch_xy(uint4 rows[4],
+                                              const uint16_t *tab_x,
+                                              const uint16_t *tab_y,
+                                              int32_t row, bool odd) {
+  const uint16_t *src = (odd ? tab_y : tab_x) + (int64_t)row * 16;
+  cp_async16(&rows[odd ? 2 : 0], src);
+  cp_async16(&rows[odd ? 3 : 1], src + 8);
+}
+
+// Starts the copy of row ``row`` of an affine table (tab_x, tab_y; tab_ok:
+// a flag a row) into rows by pair_fetch_xy and returns the row's flag. The
+// pair reads rows after cp_async_wait_all and __syncwarp.
 __device__ __forceinline__ uint32_t pair_fetch_row(uint4 rows[4],
                                                    const uint16_t *tab_x,
                                                    const uint16_t *tab_y,
                                                    const uint8_t *tab_ok,
                                                    int32_t row, bool odd) {
-  const uint16_t *src = (odd ? tab_y : tab_x) + (int64_t)row * 16;
-  cp_async16(&rows[odd ? 2 : 0], src);
-  cp_async16(&rows[odd ? 3 : 1], src + 8);
+  pair_fetch_xy(rows, tab_x, tab_y, row, odd);
   return __ldg(tab_ok + row);
+}
+
+// Starts the copy of row ``row`` of a table of three coordinates (tab_a,
+// tab_b, tab_c) into rows: a and b by pair_fetch_xy (rows[0..3]), c into
+// rows[4..5], the even lane its low half and the odd lane its high half.
+// The pair reads rows after cp_async_wait_all and __syncwarp.
+__device__ __forceinline__ void pair_fetch_row3(uint4 rows[6],
+                                                const uint16_t *tab_a,
+                                                const uint16_t *tab_b,
+                                                const uint16_t *tab_c,
+                                                int32_t row, bool odd) {
+  pair_fetch_xy(rows, tab_a, tab_b, row, odd);
+  cp_async16(&rows[odd ? 5 : 4], tab_c + (int64_t)row * 16 + (odd ? 8 : 0));
 }
 
 // The field element of 32 bytes at r (two 16-byte vectors).

@@ -22,8 +22,8 @@ def bind_verify(target: str, n_ptrs: int, with_int: bool = False):
     """Build (at first use) and bind a verify kernel's library: its C
     launcher ``<target>_verify`` takes ``n_ptrs`` device pointers, the
     verdict pointer, n, (with ``with_int``, an int: the curve id of the
-    two-curve kernels, the lanes a signature of B2 and B7 Shamir) and the
-    stream. Raises :class:`BuildError` when the library cannot be built."""
+    two-curve kernels, the lanes a signature of B2 and the B7 kernels) and
+    the stream. Raises :class:`BuildError` when the library cannot be built."""
     lib = _build.load(target)
     fn = getattr(lib, f"{target}_verify")
     fn.restype = ctypes.c_int
@@ -68,7 +68,7 @@ def launch_verify(lib, fn_name: str, args, n: int, device,
                   int_arg: int | None = None) -> torch.Tensor:
     """Run the C launcher ``<prefix>_verify`` on the current stream of
     ``device`` (passing ``int_arg`` after n: the curve id of the two-curve
-    kernels, the lanes a signature of B2 and B7 Shamir); returns ok (n,)
+    kernels, the lanes a signature of B2 and the B7 kernels); returns ok (n,)
     bool without synchronising, or raises LaunchError."""
     ok = torch.empty(n, dtype=torch.bool, device=device)
     extra = () if int_arg is None else (int_arg,)
@@ -82,7 +82,7 @@ def launch_verify(lib, fn_name: str, args, n: int, device,
 
 #: The libraries whose kernel takes the lanes a signature by batch size
 #: (``<target>_lanes(n)``): lane pairs up to a threshold, one lane above.
-LANES_BY_SIZE = ("ed25519_split", "ed25519_shamir")
+LANES_BY_SIZE = ("ed25519_split", "ed25519_shamir", "ed25519_windowed")
 
 
 def lanes_for(lib, target: str, n: int) -> int:

@@ -14,12 +14,13 @@ service path):
 
 The two B7 verifiers run the whole 256-bit scalars: ``verify_core`` (the
 Shamir ladder over MSB-first bit planes, projective acceptance against the
-host-decoded R; prep ``prepare_batch``; its kernel reads the planes as
-4-bit windows and runs lane pairs up to a batch-size threshold, one lane
-above, counted in ``verify_core.launches_by_lanes``) and ``verify_core_windowed`` (w = 16
+host-decoded R; prep ``prepare_batch``) and ``verify_core_windowed`` (w = 16
 windows of s over B's Niels table, 2-bit digits of k over {O, −A, −2A,
-−3A}, re-encoding acceptance; prep ``prepare_batch_windowed``). They are the
-per-shard work of the sharded path (``corda_tpu_torch.parallel``).
+−3A}, re-encoding acceptance; prep ``prepare_batch_windowed``). Both
+kernels read k as 4-bit windows over a cached {0..15}(−A) table and run
+lane pairs up to a batch-size threshold, one lane above, counted in
+``.launches_by_lanes``. They are the per-shard work of the sharded path
+(``corda_tpu_torch.parallel``).
 
 Each dispatcher (``verify_core_split``, ``verify_core``,
 ``verify_core_windowed``) runs its plain PyTorch version (16-bit limbs in
@@ -327,6 +328,19 @@ def verify_core_split_plain(bb_idx, a_packed, rows, r_packed,
 _LAUNCH_LOCK = threading.Lock()
 
 
+def _launch_by_lanes(lib, target: str, args, n: int, device,
+                     counter) -> torch.Tensor:
+    """Launch ``<target>_verify`` on the lanes a signature
+    ``<target>_lanes(n)`` picks and count the launch on ``counter`` (the
+    dispatcher), in all and under those lanes."""
+    lanes = cu.lanes_for(lib, target, n)
+    ok = cu.launch_verify(lib, f"{target}_verify", args, n, device, lanes)
+    with _LAUNCH_LOCK:
+        counter.launches += 1
+        counter.launches_by_lanes[lanes] += 1
+    return ok
+
+
 @functools.lru_cache(maxsize=1)
 def load_kernel():
     """The split-k kernel's library, built from ``csrc/`` at first use and
@@ -358,14 +372,8 @@ def verify_core_split_cuda(bb_idx, a_packed, rows, r_packed,
             ("r_packed", torch.uint16, (n, F.NLIMB)),
             *((f"table {k}", torch.uint16, table) for k in range(6)))
     cu.check_args(spec, args, bb_idx.device)
-    lib = load_kernel()
-    lanes = cu.lanes_for(lib, "ed25519_split", n)
-    ok = cu.launch_verify(lib, "ed25519_split_verify", args, n,
-                          bb_idx.device, lanes)
-    with _LAUNCH_LOCK:
-        verify_core_split.launches += 1
-        verify_core_split.launches_by_lanes[lanes] += 1
-    return ok
+    return _launch_by_lanes(load_kernel(), "ed25519_split", args, n,
+                            bb_idx.device, verify_core_split)
 
 
 def verify_core_split(bb_idx, a_packed, rows, r_packed,
@@ -489,9 +497,18 @@ def load_shamir_kernel():
 
 @functools.lru_cache(maxsize=1)
 def load_windowed_kernel():
-    """The windowed kernel's library, built from ``csrc/`` at first use.
-    Raises :class:`BuildError` when it cannot be built."""
-    return cu.bind_verify("ed25519_windowed", 11)
+    """The windowed kernels' library (one lane and lane pairs), built from
+    ``csrc/`` at first use and held against the plain version on known
+    answers on the current CUDA device (:mod:`.known_answers`). Raises
+    :class:`BuildError` when it cannot be built or gives a wrong answer."""
+    from . import known_answers
+    lib = cu.bind_verify("ed25519_windowed", 11, with_int=True)
+    device = torch.device("cuda", torch.cuda.current_device())
+    known_answers.check_ed25519_windowed(
+        lambda args, n, lanes: cu.launch_verify(
+            lib, "ed25519_windowed_verify", args, n, device, lanes),
+        device)
+    return lib
 
 
 def verify_core_cuda(s_bits, k_bits, neg_a, r_affine) -> torch.Tensor:
@@ -510,14 +527,8 @@ def verify_core_cuda(s_bits, k_bits, neg_a, r_affine) -> torch.Tensor:
     if len(args) != 8:
         raise ValueError("neg_a takes 4 coordinates, r_affine 2")
     cu.check_args(spec, args, s_bits.device)
-    lib = load_shamir_kernel()
-    lanes = cu.lanes_for(lib, "ed25519_shamir", n)
-    ok = cu.launch_verify(lib, "ed25519_shamir_verify", args, n,
-                          s_bits.device, lanes)
-    with _LAUNCH_LOCK:
-        verify_core.launches += 1
-        verify_core.launches_by_lanes[lanes] += 1
-    return ok
+    return _launch_by_lanes(load_shamir_kernel(), "ed25519_shamir", args, n,
+                            s_bits.device, verify_core)
 
 
 def verify_core(s_bits, k_bits, neg_a, r_affine) -> torch.Tensor:
@@ -545,7 +556,8 @@ verify_core.build_count = lambda: _build.build_count("ed25519_shamir")
 def verify_core_windowed_cuda(b_idx, a_digits, neg_a, r_y, r_sign,
                               tab_p, tab_m, tab_td) -> torch.Tensor:
     """Launch the hand-written Hopper kernel B7 (windowed) on the current
-    stream of the arguments' device; returns ok (B,) bool without
+    stream of the arguments' device, on the lanes a signature
+    ``ed25519_windowed_lanes(n)`` picks; returns ok (B,) bool without
     synchronising. Raises when the kernel does not build or the launch is
     refused."""
     n = int(b_idx.shape[-1])
@@ -561,11 +573,8 @@ def verify_core_windowed_cuda(b_idx, a_digits, neg_a, r_y, r_sign,
     if len(args) != 11:
         raise ValueError("neg_a takes 4 coordinates")
     cu.check_args(spec, args, b_idx.device)
-    ok = cu.launch_verify(load_windowed_kernel(), "ed25519_windowed_verify",
-                          args, n, b_idx.device)
-    with _LAUNCH_LOCK:
-        verify_core_windowed.launches += 1
-    return ok
+    return _launch_by_lanes(load_windowed_kernel(), "ed25519_windowed", args,
+                            n, b_idx.device, verify_core_windowed)
 
 
 def verify_core_windowed(b_idx, a_digits, neg_a, r_y, r_sign,
@@ -586,7 +595,10 @@ def verify_core_windowed(b_idx, a_digits, neg_a, r_y, r_sign,
     raise ValueError(f"unsupported device {b_idx.device}")
 
 
+#: Kernel launches through the wrapper (the CPU path launches nothing), in
+#: all and by lanes a signature: 1 the one-lane kernel, 2 the lane pairs.
 verify_core_windowed.launches = 0
+verify_core_windowed.launches_by_lanes = {1: 0, 2: 0}
 verify_core_windowed.build_count = lambda: _build.build_count(
     "ed25519_windowed")
 
@@ -606,6 +618,13 @@ def b7_to_device(arrays, device="cuda"):
             a = np.array(a, order="C")
         return torch.from_numpy(a).to(dev)
     return tuple(one(a) for a in arrays)
+
+
+def b7_flat(args) -> tuple:
+    """A B7 prep's tensors (point coordinates as tuples) as the launchers
+    take them: the coordinates spread out."""
+    return tuple(t for a in args
+                 for t in (a if isinstance(a, tuple) else (a,)))
 
 
 # ---------------------------------------------------------------------------

@@ -1,11 +1,12 @@
-"""Known answers for freshly loaded signature kernels (B2, B3, B4, B5, B7
-Shamir, B8 Shamir).
+"""Known answers for freshly loaded signature kernels (B2, B3, B4, B5, both
+B7 kernels, both B8 kernels).
 
 The kernels are compiled at first use by the toolkit of the machine that runs
 them. Before such a library gives its first verdict in a process, a fixed
-batch runs through every kernel behind its launcher (B2 and B7 Shamir on one
-lane and on lane pairs, B3 and B4 on lane pairs, B5 and B8 on lane pairs for
-each curve) and through the kernel's plain PyTorch version on the CPU. The
+batch runs through every kernel behind its launcher (B2 and both B7 kernels
+on one lane and on lane pairs, B3, B4 and B8 GLV on lane pairs, B5 and B8
+Shamir on lane pairs for each curve) and through the kernel's plain PyTorch
+version on the CPU. The
 batch holds valid signatures, tampered ones, and items whose host precheck
 fails, whose wire rows the prep zeroes or fills with placeholders (and for
 B3 and B5 signatures whose x(R) = r + n, for B5 and B8 keys G and -G). The
@@ -200,19 +201,46 @@ def check_shamir(launch, device) -> None:
               launch(args, len(items), curve_id), want)
 
 
-def check_ed25519_shamir(launch, device) -> None:
-    """Hold B7 Shamir against its plain version on :func:`ed25519_items`:
-    ``launch(args, n, lanes)`` runs the kernel on ``lanes`` lanes a
-    signature and returns its raw verdicts; raises BuildError on any
-    difference."""
-    items = ed25519_items()
-    *wire, _ = ed.prepare_batch(list(items))
+def _check_b7(target: str, wire, plain, tabs, launch, device) -> None:
+    """Hold both kernels of a B7 library (``launch(args, n, lanes)``, its
+    raw verdicts on ``lanes`` lanes a signature) against ``plain`` on a
+    prep's ``wire`` arrays of :func:`ed25519_items`, the launcher's
+    pointers the wire's tensors with point coordinates spread out, then
+    ``tabs``; raises BuildError on any difference."""
     cpu = ed.b7_to_device(wire, "cpu")
-    want = ed.verify_core_plain(*cpu)
-    args = tuple(t.to(device) for t in (cpu[0], cpu[1], *cpu[2], *cpu[3]))
+    want = plain(*cpu, *(t.cpu() for t in tabs))
+    args = (*(t.to(device) for t in ed.b7_flat(cpu)), *tabs)
     for lanes in (1, 2):
-        _held("ed25519_shamir", f"{lanes} lane(s) a signature",
-              launch(args, len(items), lanes), want)
+        _held(target, f"{lanes} lane(s) a signature",
+              launch(args, wire[0].shape[-1], lanes), want)
+
+
+def check_ed25519_shamir(launch, device) -> None:
+    """Hold B7 Shamir's kernels against their plain version on
+    :func:`ed25519_items` (:func:`_check_b7`)."""
+    *wire, _ = ed.prepare_batch(list(ed25519_items()))
+    _check_b7("ed25519_shamir", wire, ed.verify_core_plain, (), launch,
+              device)
+
+
+def check_ed25519_windowed(launch, device) -> None:
+    """Hold B7 windowed's kernels against their plain version on
+    :func:`ed25519_items` (:func:`_check_b7`)."""
+    *wire, _ = ed.prepare_batch_windowed(list(ed25519_items()),
+                                         device_tables=False)
+    _check_b7("ed25519_windowed", wire, ed.verify_core_windowed_plain,
+              ed.windowed_table(device), launch, device)
+
+
+def check_glv(launch, device) -> None:
+    """Hold B8 GLV against its plain version on :func:`k1_items`:
+    ``launch(args, n)`` returns the kernel's raw verdicts; raises
+    BuildError on any difference."""
+    items = k1_items()
+    *wire, _ = wc.prepare_batch_glv(list(items))
+    want = wc.verify_core_glv_plain(*wc.wire_to_device(wire, "cpu"))
+    args = wc.wire_to_device(wire, device)
+    _held("secp256k1_glv", "lane pairs", launch(args, len(items)), want)
 
 
 def check_windowed(launch, device) -> None:

@@ -1016,9 +1016,17 @@ def verify_core_glv_plain(bits4, pts4, r_cands) -> torch.Tensor:
 
 @functools.lru_cache(maxsize=1)
 def load_glv_kernel():
-    """The GLV kernel's library, built from ``csrc/`` at first use. Raises
-    :class:`BuildError` when it cannot be built."""
-    return cu.bind_verify("secp256k1_glv", 3)
+    """The GLV kernel's library, built from ``csrc/`` at first use and held
+    against the plain version on known answers on the current CUDA device
+    (:mod:`.known_answers`). Raises :class:`BuildError` when it cannot be
+    built or gives a wrong answer."""
+    from . import known_answers
+    lib = cu.bind_verify("secp256k1_glv", 3)
+    device = torch.device("cuda", torch.cuda.current_device())
+    known_answers.check_glv(
+        lambda args, n: cu.launch_verify(lib, "secp256k1_glv_verify", args,
+                                         n, device), device)
+    return lib
 
 
 def verify_core_glv_cuda(bits4, pts4, r_cands) -> torch.Tensor:

@@ -7,9 +7,9 @@ torch.cuda.is_available() is False). On a machine with an NVIDIA GPU:
 lacks.)
 
 Each CUDA kernel (B2 Ed25519, B3 secp256k1, B4 secp256r1, B5 windowed and
-B8 Shamir/GLV ECDSA — B3, B4, B5 and B8 Shamir on lane pairs, B2 and B7
-Shamir on lane pairs or one lane by batch size —, B6 SHA-256/Merkle, B7
-Ed25519 Shamir and windowed)
+B8 Shamir/GLV ECDSA — B3, B4, B5 and both B8 kernels on lane pairs, B2 and
+both B7 kernels on lane pairs or one lane by batch size —, B6
+SHA-256/Merkle, B7 Ed25519 Shamir and windowed)
 must give the same results as its plain PyTorch version, bit for bit (B10,
 the SIMM margin, too: both round every float32 operation in one order);
 the batcher's device routes
@@ -765,18 +765,26 @@ def test_b4_runs_lane_pairs_at_every_size(cuda):
                                                                *tabs).cpu())
 
 
+def test_b8_glv_holds_two_blocks_a_multiprocessor(cuda):
+    """B8 GLV caps its residency at 2 blocks (8 warps) a multiprocessor,
+    which a 32768-item batch fills in exactly two waves."""
+    from corda_tpu_torch.ops import _cuda
+    g = _cuda.geometry("secp256k1_glv", 32768)
+    assert (g["block"], g["lanes"], g["blocks_per_sm"]) == (128, 2, 2)
+
+
 # -- B3 and B8 Shamir on lane pairs ----------------------------------------
 
 @pytest.mark.parametrize("n", RAGGED + [32768])
 @pytest.mark.parametrize("name", ["secp256k1_hybrid", "secp256k1_shamir",
-                                  "secp256r1_shamir"])
+                                  "secp256r1_shamir", "secp256k1_glv"])
 def test_b3_and_b8_lane_pairs_match_plain_versions_at_every_size(cuda, name,
                                                                   n):
-    """B3 and both B8 Shamir instantiations run two lanes a signature at
-    every size; raw verdicts equal the plain version's on the known-answer
-    items (precheck failures, x(R) = r + n, keys G and -G) and signed ones,
-    tiled to ragged sizes and to 32768, and the wrapper counts one
-    launch."""
+    """B3, both B8 Shamir instantiations and B8 GLV run two lanes a
+    signature at every size; raw verdicts equal the plain version's on the
+    known-answer items (precheck failures, x(R) = r + n, keys G and -G) and
+    signed ones, tiled to ragged sizes and to 32768, and the wrapper counts
+    one launch."""
     from corda_tpu_torch.ops import _cuda
     from corda_tpu_torch.ops import known_answers as ka
     from corda_tpu_torch.ops import weierstrass as wc
@@ -792,6 +800,11 @@ def test_b3_and_b8_lane_pairs_match_plain_versions_at_every_size(cuda, name,
         fn, plain = wc.verify_core_hybrid_wide, wc.verify_core_hybrid_wide_plain
         tail = wc.hybrid_tables(cuda)
         geometry = _cuda.geometry("secp256k1_hybrid", n)
+    elif name == "secp256k1_glv":
+        *wire, precheck = wc.prepare_batch_glv(items)
+        wire = _tile_wire(wire, (1, 2, 1), n)
+        fn, plain, tail = wc.verify_core_glv, wc.verify_core_glv_plain, ()
+        geometry = _cuda.geometry("secp256k1_glv", n)
     else:
         *wire, precheck = wc.prepare_batch(curve, items)
         wire = _tile_wire(wire, (1, 1, 1, 1), n)
@@ -867,6 +880,63 @@ def test_b7_shamir_wrapper_counts_the_lanes_its_size_selects(cuda):
         assert torch.equal(ok.cpu(), ed.verify_core_plain(*args).cpu())
 
 
+def _windowed_args(n, seed, device):
+    """B7 windowed's launcher arguments on ``n`` adversarial items (44
+    distinct, tiled): the eleven flat tensors on ``device``, the nested
+    ones the wrapper takes, the precheck and the oracle's verdicts."""
+    from corda_tpu_torch.ops import ed25519 as ed
+    items, want = _ed_adversarial(44, seed)
+    *wire, precheck = ed.prepare_batch_windowed(items, device_tables=False)
+    assert not precheck.all()
+    idx = np.arange(n) % len(items)
+    wire = _tile_wire([wire[0], wire[1], *wire[2], wire[3], wire[4]],
+                      (1, 2, 0, 0, 0, 0, 0, 0), n)
+    flat = [torch.from_numpy(a).to(device) for a in wire]
+    nested = (flat[0], flat[1], tuple(flat[2:6]), flat[6], flat[7])
+    return (flat + list(ed.windowed_table(device)), nested, precheck[idx],
+            [want[i] for i in idx])
+
+
+@pytest.mark.parametrize("lanes", [1, 2])
+@pytest.mark.parametrize("n", RAGGED + B7_THRESHOLD + [32768])
+def test_b7_windowed_lane_variants_match_plain_version_at_every_size(
+        cuda, n, lanes):
+    """Each B7 windowed kernel (one lane, lane pairs; forced through the
+    launcher's lanes argument) equals the plain version bit for bit, raw,
+    at ragged sizes, at the lane threshold +-1 and at 32768, on adversarial
+    items (s >= L, R y >= p, undecodable keys and R among them)."""
+    from corda_tpu_torch.ops import _cuda
+    from corda_tpu_torch.ops import ed25519 as ed
+    args, nested, precheck, want = _windowed_args(n, 99, cuda)
+    ok = _cuda.launch_verify(ed.load_windowed_kernel(),
+                             "ed25519_windowed_verify", args, n, cuda, lanes)
+    torch.cuda.synchronize()
+    plain = ed.verify_core_windowed_plain(*nested, *args[8:])
+    assert torch.equal(ok.cpu(), plain.cpu())
+    assert list(ok.cpu().numpy() & precheck) == want
+
+
+def test_b7_windowed_wrapper_counts_the_lanes_its_size_selects(cuda):
+    """verify_core_windowed picks lane pairs up to the threshold and one
+    lane above it, and counts each launch under the lanes it ran."""
+    from corda_tpu_torch.ops import _cuda
+    from corda_tpu_torch.ops import ed25519 as ed
+    lanes_of = {n: _cuda.geometry("ed25519_windowed", n)["lanes"]
+                for n in B7_THRESHOLD + [1, 32768]}
+    assert lanes_of[1] == 2 and lanes_of[32768] == 1
+    assert (lanes_of[16383], lanes_of[16385]) == (2, 1)
+    for n in (16384, 16385):
+        args, nested, _, _ = _windowed_args(n, 100, cuda)
+        before = dict(ed.verify_core_windowed.launches_by_lanes)
+        ok = ed.verify_core_windowed(*nested, *args[8:])
+        torch.cuda.synchronize()
+        after = ed.verify_core_windowed.launches_by_lanes
+        moved = {k: after[k] - before[k] for k in (1, 2)}
+        assert moved == {k: int(k == lanes_of[n]) for k in (1, 2)}
+        assert torch.equal(ok.cpu(), ed.verify_core_windowed_plain(
+            *nested, *args[8:]).cpu())
+
+
 @pytest.mark.parametrize("n", RAGGED + [32768])
 @pytest.mark.parametrize("name", ["secp256k1", "secp256r1"])
 def test_b5_lane_pairs_match_plain_versions_at_every_size(cuda, name, n):
@@ -903,13 +973,14 @@ def test_b5_lane_pairs_match_plain_versions_at_every_size(cuda, name, n):
 
 @pytest.mark.parametrize("target", ["ed25519_split", "secp256r1_split",
                                     "secp256k1_hybrid", "weierstrass_shamir",
-                                    "ed25519_shamir", "weierstrass_windowed"])
+                                    "ed25519_shamir", "weierstrass_windowed",
+                                    "ed25519_windowed", "secp256k1_glv"])
 def test_a_library_that_fails_its_known_answers_is_refused(
         cuda, monkeypatch, target):
-    """A freshly loaded B2, B3, B4, B5, B7 Shamir or B8 Shamir library
-    whose raw verdicts differ from the plain version's on the known-answer
-    batch raises BuildError and gives no verdict (here the plain version is
-    made to disagree)."""
+    """A freshly loaded B2, B3, B4, B5, B7 or B8 library whose raw verdicts
+    differ from the plain version's on the known-answer batch raises
+    BuildError and gives no verdict (here the plain version is made to
+    disagree)."""
     from corda_tpu_torch import _build
     from corda_tpu_torch.ops import ed25519 as ed
     from corda_tpu_torch.ops import weierstrass as wc
@@ -925,6 +996,11 @@ def test_a_library_that_fails_its_known_answers_is_refused(
         mod, plain, load = wc, "verify_core_plain", wc.load_shamir_kernel
     elif target == "ed25519_shamir":
         mod, plain, load = ed, "verify_core_plain", ed.load_shamir_kernel
+    elif target == "ed25519_windowed":
+        mod, plain, load = ed, "verify_core_windowed_plain", \
+            ed.load_windowed_kernel
+    elif target == "secp256k1_glv":
+        mod, plain, load = wc, "verify_core_glv_plain", wc.load_glv_kernel
     else:
         mod, plain, load = wc, "verify_core_windowed_single_plain", \
             wc.load_windowed_kernel

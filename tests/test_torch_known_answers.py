@@ -1,5 +1,5 @@
-"""The known-answer batches that a freshly loaded B2, B3, B4, B5, B7 Shamir
-or B8 Shamir library must pass before its first verdict
+"""The known-answer batches that a freshly loaded B2, B3, B4, B5, B7 or B8
+library must pass before its first verdict
 (corda_tpu_torch/ops/known_answers.py), on the CPU: the batches hold valid,
 tampered and precheck-failed items (and x(R) = r + n signatures for B3 and
 B5, keys G and -G for B5 and B8) whose masked verdicts equal the host
@@ -128,9 +128,41 @@ def _shamir_plain(*args):
     return ed.verify_core_plain(args[0], args[1], args[2:6], args[6:8])
 
 
+def _windowed_plain(*args):
+    """B7 windowed's plain version on the launcher's eleven flat
+    tensors."""
+    return ed.verify_core_windowed_plain(args[0], args[1], args[2:6],
+                                         *args[6:])
+
+
+def test_glv_batch_masked_verdicts_equal_the_host_oracle():
+    """B8 GLV's batch: the secp256k1 items through the GLV prep, the x(R) =
+    r + n pair among them (the valid one accepted through r')."""
+    curve = ecmath.SECP256K1
+    items = list(ka.k1_items())
+    *wire, precheck = wc.prepare_batch_glv(items)
+    raw = wc.verify_core_glv_plain(*wc.wire_to_device(wire, CPU)).numpy()
+    want = _ecdsa_oracle(curve, items)
+    assert list(raw & precheck) == want
+    assert 0 < sum(want) < len(items) and not precheck.all()
+    assert want[-2:] == [True, False]
+
+
+def test_ed25519_windowed_batch_masked_verdicts_equal_the_host_oracle():
+    """B7 windowed's known-answer batch through its own prep."""
+    items = list(ka.ed25519_items())
+    *wire, precheck = ed.prepare_batch_windowed(items, device_tables=False)
+    raw = ed.verify_core_windowed_plain(*ed.b7_to_device(wire, CPU),
+                                        *ed.windowed_table(CPU)).numpy()
+    want = [ecmath.ed25519_verify(p, m, s) for p, s, m in items]
+    assert list(raw & precheck) == want
+    assert 0 < sum(want) < len(items) and not precheck.all()
+
+
 @pytest.mark.parametrize("target", ["ed25519_split", "secp256r1_split",
                                     "secp256k1_hybrid", "weierstrass_shamir",
-                                    "ed25519_shamir", "weierstrass_windowed"])
+                                    "ed25519_shamir", "weierstrass_windowed",
+                                    "ed25519_windowed", "secp256k1_glv"])
 def test_check_passes_the_plain_version_and_refuses_one_wrong_verdict(
         target):
     if target == "ed25519_split":
@@ -166,8 +198,22 @@ def test_check_passes_the_plain_version_and_refuses_one_wrong_verdict(
                 return ok
             ka.check_hybrid(launch, CPU)
         wrong = [True]
-    elif target == "ed25519_shamir":
-        kernel = _memo_plain(_shamir_plain)
+    elif target == "secp256k1_glv":
+        kernel = _memo_plain(wc.verify_core_glv_plain)
+
+        def check(flip):
+            def launch(args, n):
+                ok = kernel(args)
+                if flip:
+                    ok[n - 2] = ~ok[n - 2]
+                return ok
+            ka.check_glv(launch, CPU)
+        wrong = [True]
+    elif target in ("ed25519_shamir", "ed25519_windowed"):
+        kernel = _memo_plain(_shamir_plain if target == "ed25519_shamir"
+                             else _windowed_plain)
+        held = (ka.check_ed25519_shamir if target == "ed25519_shamir"
+                else ka.check_ed25519_windowed)
 
         def check(flip_lanes):
             def launch(args, n, lanes):
@@ -175,7 +221,7 @@ def test_check_passes_the_plain_version_and_refuses_one_wrong_verdict(
                 if lanes == flip_lanes:
                     ok[n // 2] = ~ok[n // 2]
                 return ok
-            ka.check_ed25519_shamir(launch, CPU)
+            held(launch, CPU)
         wrong = [1, 2]
     else:
         names = ("secp256k1", "secp256r1")

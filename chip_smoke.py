@@ -4,8 +4,9 @@ port from the sources in this checkout, holds each against its plain PyTorch
 version, and drives the signature-verification service paths end to end —
 Ed25519 and ECDSA (secp256k1, secp256r1) —, every ECDSA verify mode of
 ``verify_batch``, the Merkle hashing path (bulk tear-off proof checks and
-bulk transaction ids), the sharded path over meshes of one card and the
-SIMM margin.
+bulk transaction ids), the sharded path over meshes of one card, the
+SIMM margin and the out-of-process verifier (workers on the card behind an
+in-memory bus).
 
     python3 chip_smoke.py [--seed N] [--only-kernels NAMES] [--ab PARENT]
 
@@ -116,6 +117,19 @@ Phases (any failure exits non-zero; nothing is caught):
              profiler sessions hold no kernel record is reported as not
              measured: on the card's machine the profiler at times stops
              recording device activity for the rest of a process).
+7b. oop    — make_verifier_service("OutOfProcess") over an in-memory bus,
+             its workers' SignatureBatcher(device="cuda",
+             host_crossover=0) on the card: the service phase's 512 mixed
+             transactions through verify_signed (outcomes equal to the
+             construction, B2, B3 and B4 launched, no host routing, every
+             breaker closed) beside the service phase's mixed tx/s; an
+             untampered Ed25519 group of 32768 (resolves None) and the
+             service phase's tampered one (fails with the first bad key's
+             message) through verify_signatures, beside the direct
+             batcher's verifies/s; and 64 mixed transactions dealt to two
+             workers, one stopped unannounced and detached before the bus
+             is pumped: every future resolves exactly once with the
+             construction's outcome and the dead worker verified none.
 8. ab      — only with --ab PARENT (a directory holding an earlier commit's
              corda_tpu_torch/csrc, e.g. unpacked by git archive): that
              commit's B3, B5, both B7 and both B8 kernels built beside this
@@ -353,6 +367,12 @@ BULK_GROUPS, INTERACTIVE_RUNS, SINGLES, RUNS = 8, 25, 20, 5
 EC_SIGNERS, EC_MESSAGES = 64, 256
 EC_BULK_GROUPS, EC_INTERACTIVE_RUNS, MIXED_TXS = 4, 10, 512
 ORACLE_SAMPLE = 256
+#: Out-of-process phase: the service phase's 512 mixed transactions through
+#: one worker, two Ed25519 groups of 32768 (one untampered, one the service
+#: phase's tampered bulk group), and the first 64 mixed transactions dealt
+#: to two workers, one of which dies before the bus is pumped; every wait
+#: on the bus under OOP_DEADLINE_S.
+OOP_BULK, OOP_DEATH_TXS, OOP_DEADLINE_S = 32768, 64, 600.0
 
 #: B6 (csrc/sha256.cu): 32-bit integer instructions (LOP3, SHF, IADD3) of a
 #: Merkle pair — a compression and the pad block's — and of one block of
@@ -1012,6 +1032,187 @@ class SmokeServices:
 
     def open_attachment(self, att_id):
         return self.blobs.get(att_id)
+
+
+def pump_until(bus, futures) -> None:
+    """Pump the in-memory bus until every future is done: the workers
+    reply from their pool threads, so replies land between pumps."""
+    deadline = time.monotonic() + OOP_DEADLINE_S
+    while not all(f.done() for f in futures):
+        bus.run_network()
+        time.sleep(0.001)
+        if time.monotonic() > deadline:
+            raise SystemExit("oop: verifications did not complete within "
+                             f"{OOP_DEADLINE_S} s")
+
+
+def tx_outcomes(futures) -> list[bool]:
+    """True for a future that resolved None, False for one that failed on a
+    signature; any other failure raises."""
+    out = []
+    for f in futures:
+        try:
+            f.result(timeout=0)
+            out.append(True)
+        except Exception as exc:   # the outcome under test
+            if (type(exc).__name__ != "TransactionVerificationException"
+                    or "did not verify" not in str(exc)):
+                raise
+            out.append(False)
+    return out
+
+
+def oop_phase(card, stxs, tx_want, ed_base, bulk, bulk_want,
+              mixed_tx_per_s: float, direct_verifies_per_s: float) -> dict:
+    """Phase 7b: make_verifier_service("OutOfProcess") over an in-memory bus,
+    its workers' SignatureBatcher(device="cuda", host_crossover=0) on the
+    card: the mixed transactions through verify_signed, Ed25519 bulk groups
+    through verify_signatures, and a worker's death before the bus is
+    pumped."""
+    from corda_tpu_torch.core.crypto import PublicKey
+    from corda_tpu_torch.core.crypto.schemes import EDDSA_ED25519_SHA512
+    from corda_tpu_torch.network import InMemoryMessagingNetwork
+    from corda_tpu_torch.ops import ed25519 as ed
+    from corda_tpu_torch.ops import weierstrass as wc
+    from corda_tpu_torch.verifier import (SignatureBatcher, VerifierWorker,
+                                          make_verifier_service)
+
+    def fleet(n_workers: int):
+        bus = InMemoryMessagingNetwork()
+        svc = make_verifier_service("OutOfProcess",
+                                    network_service=bus.create_node("node"))
+        workers = [VerifierWorker(
+            bus.create_node(f"w{i}"), "node", device_shard=(0,),
+            batcher=SignatureBatcher(device="cuda", host_crossover=0))
+            for i in range(n_workers)]
+        bus.run_network()
+        if svc.queue.worker_count != n_workers:
+            raise SystemExit(f"oop: {svc.queue.worker_count} of {n_workers} "
+                             "workers attached")
+        return bus, svc, workers
+
+    def zero_launches():
+        ed.verify_core_split.launches = 0
+        wc.verify_core_hybrid_wide.launches = 0
+        wc.verify_core_r1_split.launches = 0
+
+    def launches():
+        return {"ed25519": ed.verify_core_split.launches,
+                "secp256k1": wc.verify_core_hybrid_wide.launches,
+                "secp256r1": wc.verify_core_r1_split.launches}
+
+    services = SmokeServices()
+    # 1. the mixed transactions through one worker
+    bus, svc, (worker,) = fleet(1)
+    zero_launches()
+    t0 = time.perf_counter()
+    futs = [svc.verify_signed(stx, services) for stx in stxs]
+    pump_until(bus, futs)
+    mixed_s = time.perf_counter() - t0
+    mixed_launches = launches()
+    if tx_outcomes(futs) != tx_want:
+        raise SystemExit("oop: verify_signed outcomes disagree with the "
+                         "construction")
+    batcher = worker.batcher
+    require_clean(batcher.metrics.snapshot(), batcher.breaker_status(),
+                  3 * len(stxs), "oop verify_signed")
+    if 0 in mixed_launches.values():
+        raise SystemExit("oop: the worker launched a kernel no time: "
+                         f"{mixed_launches}")
+
+    # 2. Ed25519 bulk groups: one untampered, one with the service phase's
+    # tampering (it fails with the first bad key's message)
+    clean = [(PublicKey(EDDSA_ED25519_SHA512, p), s, m) for p, s, m in
+             (ed_base[i % len(ed_base)] for i in range(OOP_BULK))]
+    first_bad = bulk[bulk_want.index(False)][0]
+    want_msg = f"Signature by {first_bad.to_string_short()} did not verify"
+    zero_launches()
+    t0 = time.perf_counter()
+    futs = [svc.verify_signatures(clean), svc.verify_signatures(bulk)]
+    pump_until(bus, futs)
+    bulk_s = time.perf_counter() - t0
+    bulk_launches = launches()["ed25519"]
+    if futs[0].result(timeout=0) is not None:
+        raise SystemExit("oop: the untampered group did not resolve None")
+    try:
+        futs[1].result(timeout=0)
+        raise SystemExit("oop: the tampered group resolved None")
+    except Exception as exc:   # the outcome under test
+        if (type(exc).__name__ != "TransactionVerificationException"
+                or not str(exc).startswith(want_msg)):
+            raise SystemExit(f"oop: the tampered group failed with {exc!r}, "
+                             f"not {want_msg!r}")
+    snap = batcher.metrics.snapshot()
+    breakers = batcher.breaker_status()
+    require_clean(snap, breakers, 3 * len(stxs) + 2 * OOP_BULK, "oop bulk")
+    if bulk_launches == 0:
+        raise SystemExit("oop: the bulk groups launched B2 no time")
+    status = svc.fleet_status()
+    counts = svc.metrics.snapshot()
+    worker.stop()
+    svc.shutdown()
+    out = {
+        "card": card,
+        "mixed_txs": len(stxs), "oop_mixed_wall_s": mixed_s,
+        "oop_mixed_tx_per_s": len(stxs) / mixed_s,
+        "mixed_tx_per_s": mixed_tx_per_s,
+        "oop_mixed_kernel_launches": mixed_launches,
+        "oop_bulk_groups": 2, "oop_bulk_items": 2 * OOP_BULK,
+        "oop_bulk_wall_s": bulk_s,
+        "oop_bulk_verifies_per_s": 2 * OOP_BULK / bulk_s,
+        "direct_bulk_verifies_per_s": direct_verifies_per_s,
+        "oop_bulk_kernel_launches": bulk_launches,
+        "tampered_group_error": want_msg,
+        "worker_verified": worker.verified_count,
+        "worker_processed_sigs": worker.processed_sig_count,
+        "device_checked": count(snap, "SigBatcher.DeviceChecked"),
+        "device_batches": count(snap, "SigBatcher.DeviceBatches"),
+        "host_routed": count(snap, "SigBatcher.HostRouted"),
+        "batch_failures": count(snap, "SigBatcher.BatchFailure"),
+        "breakers": {k: v["state"] for k, v in breakers.items()},
+        "verification_success": count(counts, "Verification.Success"),
+        "verification_failure": count(counts, "Verification.Failure"),
+        "fleet_status": status,
+    }
+
+    # 3. redistribution on a worker's death, on the card
+    bus, svc, (dead, alive) = fleet(2)
+    zero_launches()
+    futs = [svc.verify_signed(stx, services)
+            for stx in stxs[:OOP_DEATH_TXS]]
+    dead.stop(announce=False)
+    svc.queue.detach_worker("w0")
+    pump_until(bus, futs)
+    if tx_outcomes(futs) != tx_want[:OOP_DEATH_TXS]:
+        raise SystemExit("oop: outcomes after a worker's death disagree "
+                         "with the construction")
+    rlog = svc.request_log
+    terminal = [rlog.terminal_count(vid) for vid in
+                range(1, OOP_DEATH_TXS + 1)]
+    requeued = sum("requeued" in rlog.events(vid)
+                   for vid in range(1, OOP_DEATH_TXS + 1))
+    counts = svc.metrics.snapshot()
+    resolved = (count(counts, "Verification.Success")
+                + count(counts, "Verification.Failure"))
+    if terminal != [1] * OOP_DEATH_TXS or resolved != OOP_DEATH_TXS:
+        raise SystemExit("oop: a future did not resolve exactly once "
+                         f"({resolved} resolved, terminal {terminal})")
+    if dead.verified_count != 0 or alive.verified_count != OOP_DEATH_TXS \
+            or requeued == 0:
+        raise SystemExit(f"oop: the dead worker verified "
+                         f"{dead.verified_count}, the survivor "
+                         f"{alive.verified_count}, {requeued} requeued")
+    require_clean(alive.batcher.metrics.snapshot(),
+                  alive.batcher.breaker_status(), 3 * OOP_DEATH_TXS,
+                  "oop after a worker's death")
+    death_launches = launches()
+    alive.stop()
+    svc.shutdown()
+    out["death"] = {"txs": OOP_DEATH_TXS, "requeued": requeued,
+                    "dead_verified": dead.verified_count,
+                    "alive_verified": alive.verified_count,
+                    "kernel_launches": death_launches}
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2574,6 +2775,13 @@ def main() -> int:
         "traced_device_idle_share": idle_share(busy_s, traced_s)})
     log(json.dumps({"path": "ecdsa", **ec_service}))
     t_phase = log_phase("service", t_phase)
+
+    # -- phase 7b: the out-of-process verifier --------------------------------
+    oop = oop_phase(card, stxs, tx_want, base, bulk, bulk_want,
+                    ec_service["mixed_tx_per_s"],
+                    service["service_verifies_per_s"])
+    log(json.dumps({"path": "oop", **oop}))
+    t_phase = log_phase("oop", t_phase)
 
     # -- phase 8: an earlier commit's B3, B5, B7 and B8 ----------------------
     if args.ab is not None:

@@ -1,0 +1,155 @@
+"""Deterministic in-memory message bus with manual pumping.
+
+Reference parity: InMemoryMessagingNetwork (test-utils/.../
+InMemoryMessagingNetwork.kt:47-79) — N in-process endpoints over one bus;
+messages queue until *pumped* so protocol interleavings are reproducible
+single-threaded (`run_network()` = MockNetwork.runNetwork). A transfer
+observer stream supports assertions and fault injection (message drop /
+reorder) in tests.
+"""
+from __future__ import annotations
+
+from collections import deque
+from dataclasses import dataclass
+from typing import Callable
+
+from ..utils.faults import DROP, DUPLICATE, fault_point
+from .messaging import (HandlerTable, Message, MessagingService,
+                        MessageHandlerRegistration, TopicSession)
+
+
+@dataclass(frozen=True)
+class MessageTransfer:
+    sender: str
+    recipient: str
+    message: Message
+
+
+class InMemoryMessagingNetwork:
+    """The shared bus. Endpoints are created per node name."""
+
+    def __init__(self):
+        self._endpoints: dict[str, "InMemoryMessaging"] = {}
+        self._queues: dict[str, deque[MessageTransfer]] = {}
+        self.sent_log: list[MessageTransfer] = []
+        self.delivered_log: list[MessageTransfer] = []
+        # Fault-injection hook: return False to drop a transfer (loadtest
+        # Disruption analog for the deterministic bus).
+        self.transfer_filter: Callable[[MessageTransfer], bool] | None = None
+
+    def create_node(self, name: str) -> "InMemoryMessaging":
+        if name in self._endpoints:
+            raise ValueError(f"duplicate node name {name!r}")
+        ep = InMemoryMessaging(self, name)
+        self._endpoints[name] = ep
+        self._queues[name] = deque()
+        return ep
+
+    def endpoint(self, name: str) -> "InMemoryMessaging":
+        return self._endpoints[name]
+
+    @property
+    def node_names(self) -> list[str]:
+        return list(self._endpoints)
+
+    # -- transport ----------------------------------------------------------
+    def _enqueue(self, sender: str, recipient: str, message: Message) -> None:
+        if recipient not in self._queues:
+            raise KeyError(f"unknown recipient {recipient!r}")
+        transfer = MessageTransfer(sender, recipient, message)
+        self.sent_log.append(transfer)
+        if self.transfer_filter is not None and not self.transfer_filter(transfer):
+            return  # dropped
+        # seeded chaos seam: partitions target detail="sender->recipient"
+        act = fault_point("net.send", detail=f"{sender}->{recipient}")
+        if act == DROP:
+            return
+        self._queues[recipient].append(transfer)
+        if act == DUPLICATE:
+            self._queues[recipient].append(transfer)
+
+    # -- pumping ------------------------------------------------------------
+    def pump_receive(self, recipient: str) -> MessageTransfer | None:
+        """Deliver ONE pending message to `recipient` (pumpReceive analog)."""
+        q = self._queues[recipient]
+        try:
+            transfer = q.popleft()
+        except IndexError:
+            # empty — including the check-then-pop race when a second thread
+            # pumps a disjoint endpoint set (the raft demo's background pump)
+            return None
+        self.delivered_log.append(transfer)
+        self._endpoints[recipient]._deliver(transfer)
+        return transfer
+
+    def run_network(self, rounds: int = -1, exclude=()) -> int:
+        """Pump all queues until quiescent (or `rounds` pumps). Returns the
+        number of messages delivered (MockNetwork.runNetwork analog).
+        `exclude` skips endpoints another thread owns."""
+        delivered = 0
+        excluded = set(exclude)
+        while rounds != 0:
+            progressed = False
+            for name in list(self._queues):
+                if name in excluded:
+                    continue
+                if self.pump_receive(name) is not None:
+                    delivered += 1
+                    progressed = True
+                    if rounds > 0:
+                        rounds -= 1
+                        if rounds == 0:
+                            return delivered
+            if not progressed:
+                break
+        return delivered
+
+    def pending_count(self) -> int:
+        return sum(len(q) for q in self._queues.values())
+
+
+class InMemoryMessaging(MessagingService):
+    """One endpoint on the bus (a node's MessagingService)."""
+
+    supports_trace = True
+
+    def __init__(self, network: InMemoryMessagingNetwork, name: str):
+        self._network = network
+        self._name = name
+        self._handlers = HandlerTable()
+        # Messages that arrived before a handler was registered are parked and
+        # replayed on registration (NodeMessagingClient undeliverable retention).
+        self._undelivered: list[Message] = []
+
+    @property
+    def my_address(self) -> str:
+        return self._name
+
+    def send(self, topic_session: TopicSession, payload: bytes,
+             recipient: str, trace: tuple | None = None) -> None:
+        msg = Message(topic_session, payload, sender=self._name, trace=trace)
+        self._network._enqueue(self._name, recipient, msg)
+
+    def add_message_handler(self, topic_session: TopicSession, callback
+                            ) -> MessageHandlerRegistration:
+        reg = self._handlers.add(topic_session, callback)
+        still_parked = []
+        for msg in self._undelivered:
+            if (msg.topic_session.topic == topic_session.topic
+                    and msg.topic_session.session_id == topic_session.session_id):
+                callback(msg)
+            else:
+                still_parked.append(msg)
+        self._undelivered = still_parked
+        return reg
+
+    def remove_message_handler(self, reg: MessageHandlerRegistration) -> None:
+        self._handlers.remove(reg)
+
+    def _deliver(self, transfer: MessageTransfer) -> None:
+        handlers = self._handlers.matching(transfer.message)
+        if not handlers:
+            self._undelivered.append(transfer.message)
+            return
+        for h in handlers:
+            h.callback(transfer.message)

@@ -1,0 +1,106 @@
+"""Messaging abstractions shared by the in-memory bus and real transports.
+
+Reference parity: `MessagingService`/`TopicSession`/`Message`
+(node/services/messaging/Messaging.kt:1-230): topic+session addressing,
+handler registration returning a deregistrable handle, at-least-once delivery
+with unique-id dedupe left to the transport.
+"""
+from __future__ import annotations
+
+import itertools
+import threading
+from dataclasses import dataclass, field
+from typing import Any, Callable
+
+DEFAULT_SESSION_ID = 0
+
+# Well-known topics (ArtemisMessagingComponent / NetworkMapService.kt:65-71 analog)
+TOPIC_P2P = "platform.session"
+TOPIC_SESSION_INIT = "platform.session.init"
+TOPIC_NETWORK_MAP_FETCH = "platform.network_map.fetch"
+TOPIC_NETWORK_MAP_REGISTER = "platform.network_map.register"
+TOPIC_NETWORK_MAP_SUBSCRIBE = "platform.network_map.subscribe"
+TOPIC_NETWORK_MAP_PUSH = "platform.network_map.push"
+TOPIC_VERIFIER_REQUESTS = "verifier.requests"
+TOPIC_VERIFIER_RESPONSES = "verifier.responses"
+
+
+@dataclass(frozen=True)
+class TopicSession:
+    """Topic + session id — the addressing unit (Messaging.kt TopicSession)."""
+
+    topic: str
+    session_id: int = DEFAULT_SESSION_ID
+
+    def __str__(self):
+        return f"{self.topic}.{self.session_id}"
+
+
+_uid = itertools.count(1)
+
+
+@dataclass(frozen=True)
+class Message:
+    topic_session: TopicSession
+    data: bytes
+    unique_id: int = field(default_factory=lambda: next(_uid))
+    sender: str | None = None  # peer name, filled by the transport
+    # (trace_id, span_id) of the sending flow's span, when the transport
+    # propagates traces (observability.tracing) — None otherwise
+    trace: tuple | None = None
+
+
+@dataclass(frozen=True)
+class MessageHandlerRegistration:
+    topic_session: TopicSession
+    callback: Callable[[Message], None]
+
+
+class MessagingService:
+    """Transport-independent messaging SPI (Messaging.kt:1-230)."""
+
+    #: transports that carry Message.trace across the wire flip this on;
+    #: senders probe it before passing the trace kwarg, so third-party
+    #: transports with the original send() signature keep working
+    supports_trace = False
+
+    def send(self, topic_session: TopicSession, payload: bytes,
+             recipient: str) -> None:
+        raise NotImplementedError
+
+    def add_message_handler(self, topic_session: TopicSession,
+                            callback: Callable[[Message], None]
+                            ) -> MessageHandlerRegistration:
+        raise NotImplementedError
+
+    def remove_message_handler(self, registration: MessageHandlerRegistration
+                               ) -> None:
+        raise NotImplementedError
+
+    @property
+    def my_address(self) -> str:
+        raise NotImplementedError
+
+
+class HandlerTable:
+    """Thread-safe handler registry shared by transports."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._handlers: list[MessageHandlerRegistration] = []
+
+    def add(self, topic_session: TopicSession, callback) -> MessageHandlerRegistration:
+        reg = MessageHandlerRegistration(topic_session, callback)
+        with self._lock:
+            self._handlers.append(reg)
+        return reg
+
+    def remove(self, reg: MessageHandlerRegistration) -> None:
+        with self._lock:
+            self._handlers.remove(reg)
+
+    def matching(self, message: Message) -> list[MessageHandlerRegistration]:
+        with self._lock:
+            return [h for h in self._handlers
+                    if h.topic_session.topic == message.topic_session.topic
+                    and h.topic_session.session_id == message.topic_session.session_id]

@@ -1,0 +1,195 @@
+"""Service-level objectives over the ledger commit path.
+
+The ledger harness (observability/ledger_harness.py) turns the commit
+path into a stream of per-transaction outcomes: did it commit, and how
+long from *intended* send to vault write. This module folds that stream
+into the two SLO shapes operators actually page on (the SRE-workbook
+model):
+
+- an **availability** objective — the fraction of submitted transactions
+  that commit must stay above ``target`` (e.g. 99.9%);
+- a **latency** objective — the fraction of transactions finishing under
+  ``latency_ms`` must stay above ``target`` (a p99-latency objective is
+  ``target=0.99`` with ``latency_ms`` at the promised bound; a slow
+  commit burns this budget exactly like a failed one burns availability).
+
+Each objective keeps a sliding multi-window event ring and derives:
+
+- ``error budget``: the allowed bad fraction is ``1 - target``; remaining
+  budget is what's left of it over the LONGEST window, as a percentage
+  (100 = untouched, 0 = fully burned).
+- ``burn rate``: (observed bad fraction) / (allowed bad fraction) per
+  window. 1.0 means burning exactly at budget; 14.4 means the whole
+  budget would be gone in 1/14.4 of the period.
+- **multi-window alerts**: a *page* fires when BOTH the short and long
+  window burn at ``fast_burn`` or above (a real, ongoing fire — the short
+  window keeps the alert fresh, the long window keeps it from flapping);
+  a *ticket* fires when the long window alone burns at ``slow_burn`` or
+  above (a slow leak that will exhaust the budget before anyone looks).
+
+``publish()`` exports the gauges through a MetricRegistry; ``status()``
+is the ``/readyz`` payload — the node surfaces it as ``degraded.slo``
+when any alert is active (degraded, not unready: the node still serves,
+but it is eating its error budget).
+
+The clock is injectable so tests drive the windows deterministically.
+"""
+from __future__ import annotations
+
+import threading
+import time
+from collections import deque
+from dataclasses import dataclass
+
+
+@dataclass(frozen=True)
+class SLObjective:
+    """One objective: name, target fraction, optional latency bound.
+
+    ``latency_ms is None`` → availability (bad = failed);
+    otherwise → latency (bad = failed OR slower than ``latency_ms``).
+    """
+
+    name: str
+    target: float               # e.g. 0.999 → 0.1% error budget
+    latency_ms: float | None = None
+
+    @property
+    def budget_fraction(self) -> float:
+        return max(1e-9, 1.0 - self.target)
+
+    def is_bad(self, ok: bool, latency_s: float | None) -> bool:
+        if not ok:
+            return True
+        if self.latency_ms is None:
+            return False
+        return latency_s is not None and latency_s * 1000.0 > self.latency_ms
+
+
+#: Harness defaults: three nines of commit availability, and a p99-style
+#: latency objective (99% under 1s end-to-end, measured from INTENDED send).
+DEFAULT_OBJECTIVES = (
+    SLObjective("availability", 0.999),
+    SLObjective("latency_p99", 0.99, latency_ms=1000.0),
+)
+
+
+class SLOTracker:
+    """Sliding-window error-budget accounting for a stream of outcomes."""
+
+    def __init__(self, objectives=DEFAULT_OBJECTIVES,
+                 windows_s: tuple = (60.0, 300.0),
+                 clock=time.monotonic, capacity: int = 65536,
+                 fast_burn: float = 14.4, slow_burn: float = 6.0):
+        if len(windows_s) < 2 or sorted(windows_s) != list(windows_s):
+            raise ValueError("windows_s must be ascending and have >= 2 "
+                             "entries (short, ..., long)")
+        self.objectives = tuple(objectives)
+        self.windows_s = tuple(float(w) for w in windows_s)
+        self.clock = clock
+        self.capacity = capacity
+        self.fast_burn = fast_burn
+        self.slow_burn = slow_burn
+        self._lock = threading.Lock()
+        # (t, ok, latency_s) — bounded by capacity AND the longest window
+        self._events: deque = deque(maxlen=capacity)
+
+    # -- recording -----------------------------------------------------------
+    def record(self, ok: bool, latency_s: float | None = None) -> None:
+        now = self.clock()
+        with self._lock:
+            self._events.append((now, bool(ok), latency_s))
+            horizon = now - self.windows_s[-1]
+            while self._events and self._events[0][0] < horizon:
+                self._events.popleft()
+
+    # -- derived views -------------------------------------------------------
+    def _window_counts(self, objective: SLObjective, now: float) -> dict:
+        """{window_s: (total, bad)} under one objective's bad predicate."""
+        with self._lock:
+            events = list(self._events)
+        out = {}
+        for w in self.windows_s:
+            cutoff = now - w
+            total = bad = 0
+            for t, ok, lat in events:
+                if t < cutoff:
+                    continue
+                total += 1
+                if objective.is_bad(ok, lat):
+                    bad += 1
+            out[w] = (total, bad)
+        return out
+
+    def burn_rates(self, objective: SLObjective, now: float | None = None
+                   ) -> dict:
+        """{window_s: burn_rate}; 0.0 with no traffic in the window."""
+        now = self.clock() if now is None else now
+        rates = {}
+        for w, (total, bad) in self._window_counts(objective, now).items():
+            frac = (bad / total) if total else 0.0
+            rates[w] = frac / objective.budget_fraction
+        return rates
+
+    def error_budget_pct(self, objective: SLObjective,
+                         now: float | None = None) -> float:
+        """Remaining budget over the LONGEST window, 0..100."""
+        now = self.clock() if now is None else now
+        total, bad = self._window_counts(objective, now)[self.windows_s[-1]]
+        if not total:
+            return 100.0
+        burned = (bad / total) / objective.budget_fraction
+        return round(max(0.0, 1.0 - burned) * 100.0, 4)
+
+    def alerts(self, now: float | None = None) -> list:
+        """Active multi-window burn alerts, worst first."""
+        now = self.clock() if now is None else now
+        out = []
+        short_w, long_w = self.windows_s[0], self.windows_s[-1]
+        for obj in self.objectives:
+            rates = self.burn_rates(obj, now)
+            if min(rates[short_w], rates[long_w]) >= self.fast_burn:
+                out.append({"objective": obj.name, "severity": "page",
+                            "burn_rate": round(rates[short_w], 2),
+                            "windows_s": [short_w, long_w]})
+            elif rates[long_w] >= self.slow_burn:
+                out.append({"objective": obj.name, "severity": "ticket",
+                            "burn_rate": round(rates[long_w], 2),
+                            "windows_s": [long_w]})
+        out.sort(key=lambda a: -a["burn_rate"])
+        return out
+
+    def status(self, now: float | None = None) -> dict:
+        """The /readyz ``degraded.slo`` payload (also /api surfaces)."""
+        now = self.clock() if now is None else now
+        alerts = self.alerts(now)
+        objectives = {}
+        for obj in self.objectives:
+            rates = self.burn_rates(obj, now)
+            objectives[obj.name] = {
+                "target": obj.target,
+                "latency_ms": obj.latency_ms,
+                "error_budget_pct": self.error_budget_pct(obj, now),
+                "burn_rates": {f"{int(w)}s": round(r, 3)
+                               for w, r in rates.items()},
+            }
+        return {"alerting": bool(alerts), "alerts": alerts,
+                "objectives": objectives}
+
+    # -- metrics export ------------------------------------------------------
+    def publish(self, registry) -> None:
+        """Gauges on a MetricRegistry: per-objective remaining budget and
+        short/long burn rates, plus an overall alerting flag — read lazily
+        at snapshot time, so /metrics always shows the current windows."""
+        short_w, long_w = self.windows_s[0], self.windows_s[-1]
+        for obj in self.objectives:
+            registry.gauge(
+                f"SLO.{obj.name}.ErrorBudgetPct",
+                lambda o=obj: self.error_budget_pct(o))
+            registry.gauge(
+                f"SLO.{obj.name}.BurnRateShort",
+                lambda o=obj: round(self.burn_rates(o)[short_w], 4))
+            registry.gauge(
+                f"SLO.{obj.name}.BurnRateLong",
+                lambda o=obj: round(self.burn_rates(o)[long_w], 4))
+        registry.gauge("SLO.Alerting", lambda: int(bool(self.alerts())))

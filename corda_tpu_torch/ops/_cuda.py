@@ -64,6 +64,15 @@ def check_args(spec, args, device: torch.device) -> None:
                              "aligned")
 
 
+def require_fixed(name: str, value, fixed) -> None:
+    """A parameter the JAX package's function takes and the port's kernels
+    fix (a window width, a curve, a table placement): accepted at the value
+    the kernel was built for, refused with ValueError at any other."""
+    if value != fixed:
+        raise ValueError(f"{name}={value!r}: the port's kernels take "
+                         f"{name}={fixed!r} only")
+
+
 def launch_verify(lib, fn_name: str, args, n: int, device,
                   int_arg: int | None = None) -> torch.Tensor:
     """Run the C launcher ``<prefix>_verify`` on the current stream of

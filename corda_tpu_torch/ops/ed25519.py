@@ -578,15 +578,17 @@ def verify_core_windowed_cuda(b_idx, a_digits, neg_a, r_y, r_sign,
 
 
 def verify_core_windowed(b_idx, a_digits, neg_a, r_y, r_sign,
-                         tab_p, tab_m, tab_td) -> torch.Tensor:
+                         tab_p, tab_m, tab_td, w: int = B_WINDOW
+                         ) -> torch.Tensor:
     """Windowed verify: ``b_idx`` (16, B) i32 w = 16 windows of s;
     ``a_digits`` (16, 8, B) u8 2-bit digits of k; ``neg_a`` 4 × (B, 16)
     u16; ``r_y`` (B, 16) u16 wire y; ``r_sign`` (B,) u8; B's Niels table
     3 × (65536, 16) u16. Returns ok (B,) bool: compress([s]B + [k](−A)) ==
-    the wire R.
+    the wire R. ``w``: the JAX function's B window, B_WINDOW only.
 
     CPU tensors run the plain version; CUDA tensors launch the kernel (or
     raise)."""
+    cu.require_fixed("w", w, B_WINDOW)
     args = (b_idx, a_digits, neg_a, r_y, r_sign, tab_p, tab_m, tab_td)
     if b_idx.device.type == "cpu":
         return verify_core_windowed_plain(*args)
@@ -767,14 +769,18 @@ def prepare_batch_windowed(items: list[tuple[bytes, bytes, bytes]],
 
 
 def prepare_batch_split(items: list[tuple[bytes, bytes, bytes]],
-                        w: int = SPLIT_B_WINDOW, staging=None):
+                        w: int = SPLIT_B_WINDOW, device_tables: bool = False,
+                        staging=None):
     """Host prep for the split-k kernel: (pub32, sig64, msg) triples →
     (bb_idx (16,B) i32, a_packed (8,8,B) u8, rows (B,6,16) u16,
     r_packed (B,16) u16, precheck (B,) bool), as numpy arrays byte-identical
-    to the JAX package's wire arrays. ``staging`` (ops.staging.StagingLease)
-    supplies the reused (pinned) host buffer for ``rows``."""
+    to the JAX package's wire arrays with ``device_tables=False``: the B
+    tables are the caller's (:func:`split_tables`), so True is refused.
+    ``staging`` (ops.staging.StagingLease) supplies the reused (pinned) host
+    buffer for ``rows``."""
     if w != SPLIT_B_WINDOW:
         raise ValueError("split prep emits 16-bit constant-base windows")
+    cu.require_fixed("device_tables", device_tables, False)
     n = len(items)
     rows = (staging.take("ed.rows", (n, 6, F.NLIMB), np.uint16)
             if staging is not None

@@ -808,15 +808,18 @@ def verify_core_hybrid_wide_cuda(g_idx, q_bits, pts, r_limbs,
 
 
 def verify_core_hybrid_wide(g_idx, q_bits, pts, r_limbs, tab_x, tab_y,
-                            tab_ok) -> torch.Tensor:
+                            tab_ok, g_w: int = HYBRID_G_WINDOW
+                            ) -> torch.Tensor:
     """secp256k1 hybrid verify over the consolidated wire form: ``g_idx``
     (16, B) i32 (18-bit indices, ``rn_ok`` at bit 18 of row 0); ``q_bits``
     (16, 4, B) u8 joint digits wc | wd << 2; ``pts`` (B, 4, 16) u16 =
     (Qc x, Qc y, Qd x, Qd y); ``r_limbs`` (B, 16) u16; the G table
     (2^18, 16) u16 x, y and (2^18,) u8 ok. Returns ok (B,) bool.
+    ``g_w``: the JAX function's G window, HYBRID_G_WINDOW only.
 
     CPU tensors run the plain version; CUDA tensors launch the kernel (or
     raise)."""
+    cu.require_fixed("g_w", g_w, HYBRID_G_WINDOW)
     args = (g_idx, q_bits, pts, r_limbs, tab_x, tab_y, tab_ok)
     if g_idx.device.type == "cpu":
         return verify_core_hybrid_wide_plain(*args)
@@ -894,17 +897,22 @@ def verify_core_r1_split_cuda(g_idx, q_digits, q_x, q_y, xd_limbs,
 
 
 def verify_core_r1_split(g_idx, q_digits, q_x, q_y, xd_limbs,
-                         lo_x, lo_y, lo_ok, hi_x, hi_y, hi_ok
-                         ) -> torch.Tensor:
+                         lo_x, lo_y, lo_ok, hi_x, hi_y, hi_ok,
+                         curve_name: str = "secp256r1",
+                         w: int = R1_G_WINDOW) -> torch.Tensor:
     """secp256r1 split verify: ``g_idx`` (8, 2, B) i32 ([:, 0] t_hi
     windows for the G′ table, [:, 1] t_lo windows for the G table);
     ``q_digits`` (8, 4, B) u8; ``q_x``, ``q_y`` (B, 16) u16 (y
     sign-adjusted); ``xd_limbs`` (B, 16) u16 = x([v2]R); the G and G′
     tables (2^16, 16) u16 x, y and (2^16,) u8 ok. The JAX function's ``Q``
-    pair is passed as ``q_x, q_y``. Returns ok (B,) bool.
+    pair is passed as ``q_x, q_y``. Returns ok (B,) bool. ``curve_name``
+    and ``w``: the JAX function's static arguments, "secp256r1" and
+    R1_G_WINDOW only.
 
     CPU tensors run the plain version; CUDA tensors launch the kernel (or
     raise)."""
+    cu.require_fixed("curve_name", curve_name, "secp256r1")
+    cu.require_fixed("w", w, R1_G_WINDOW)
     args = (g_idx, q_digits, q_x, q_y, xd_limbs,
             lo_x, lo_y, lo_ok, hi_x, hi_y, hi_ok)
     if g_idx.device.type == "cpu":
@@ -1129,16 +1137,18 @@ def verify_core_windowed_single_cuda(g_idx, q_digits, q_x, q_y, r_limbs,
 
 
 def verify_core_windowed_single(g_idx, q_digits, q_x, q_y, r_limbs, rn_ok,
-                                tab_x, tab_y, tab_ok,
-                                curve_name: str) -> torch.Tensor:
+                                tab_x, tab_y, tab_ok, curve_name: str,
+                                w: int = R1_G_WINDOW) -> torch.Tensor:
     """secp256k1/secp256r1 windowed verify: ``g_idx`` (16, B) i32 16-bit
     windows of u1; ``q_digits`` (16, 4, B) u8 4-bit windows of u2, both MSB
     first; ``q_x``, ``q_y`` (B, 16) u16 (the JAX function's ``Q`` pair);
     ``r_limbs`` (B, 16) u16; ``rn_ok`` (B,) u8; the curve's G table
-    (2^16, 16) u16 x, y and (2^16,) u8 ok. Returns ok (B,) bool.
+    (2^16, 16) u16 x, y and (2^16,) u8 ok. Returns ok (B,) bool. ``w``:
+    the JAX function's G window, R1_G_WINDOW only.
 
     CPU tensors run the plain version; CUDA tensors launch the kernel (or
     raise)."""
+    cu.require_fixed("w", w, R1_G_WINDOW)
     args = (g_idx, q_digits, q_x, q_y, r_limbs, rn_ok, tab_x, tab_y, tab_ok,
             curve_name)
     if g_idx.device.type == "cpu":
@@ -1284,10 +1294,12 @@ def _prepare_hybrid_python(items):
     return g_idx, q_bits, pts, r_limbs, precheck
 
 
-def prepare_batch_hybrid_wide(items):
+def prepare_batch_hybrid_wide(items, g_w: int = HYBRID_G_WINDOW):
     """Host prep for the hybrid kernel: (pub, msg, r, s) items → (g_idx,
     q_bits, pts, r_limbs, precheck) numpy arrays; native scalar layer when
-    libscalarmath is available, the bit-identical Python one otherwise."""
+    libscalarmath is available, the bit-identical Python one otherwise.
+    ``g_w``: the JAX function's G window, HYBRID_G_WINDOW only."""
+    cu.require_fixed("g_w", g_w, HYBRID_G_WINDOW)
     if sp.available():
         return _prepare_hybrid_native_words(*_items_to_words(items))
     return _prepare_hybrid_python(items)
@@ -1435,12 +1447,15 @@ def _prepare_r1_split_python(curve: WeierstrassCurve, items):
                           precheck, forced)
 
 
-def prepare_batch_r1_split(curve: WeierstrassCurve, items):
+def prepare_batch_r1_split(curve: WeierstrassCurve, items,
+                           w: int = R1_G_WINDOW):
     """Host prep for the split kernel: (pub, msg, r, s) items →
     (g_idx, q_digits, q_x, q_y, xd_limbs, precheck_eff, forced) numpy
-    arrays; callers combine verdicts as ``(dev & precheck_eff) | forced``."""
+    arrays; callers combine verdicts as ``(dev & precheck_eff) | forced``.
+    ``w``: the JAX function's G window, R1_G_WINDOW only."""
     if curve.name != "secp256r1":
         raise ValueError("the split prep is for secp256r1")
+    cu.require_fixed("w", w, R1_G_WINDOW)
     if sp.available():
         return _prepare_r1_split_native_words(*_items_to_words(items))
     return _prepare_r1_split_python(curve, items)
@@ -1537,12 +1552,15 @@ def _prepare_windowed_single_python(curve: WeierstrassCurve, items):
     return g_idx, q_digits, q_x, q_y, r_limbs, rn_ok, precheck
 
 
-def prepare_batch_windowed_single(curve: WeierstrassCurve, items):
+def prepare_batch_windowed_single(curve: WeierstrassCurve, items,
+                                  w: int = R1_G_WINDOW):
     """Host prep for the windowed kernel (w = 16): (pub, msg, r, s) items →
     (g_idx, q_digits, q_x, q_y, r_limbs, rn_ok, precheck) numpy arrays;
     native for secp256r1 when libscalarmath is available, Python otherwise
     (as in the reference). The G table is the caller's
-    (:func:`windowed_tables`)."""
+    (:func:`windowed_tables`). ``w``: the JAX function's G window,
+    R1_G_WINDOW only."""
+    cu.require_fixed("w", w, R1_G_WINDOW)
     if curve.name == "secp256r1" and sp.available():
         return _prepare_windowed_single_native_words(*_items_to_words(items))
     return _prepare_windowed_single_python(curve, items)

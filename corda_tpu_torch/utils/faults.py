@@ -31,12 +31,16 @@ Fault points in this package:
 ====================== ======================================================
 point                  seam
 ====================== ======================================================
+``net.send``           in-memory bus, before a message is enqueued
 ``batcher.device_dispatch`` SignatureBatcher, inside the device-dispatch try
+``oop.deliver``        verifier queue → worker request send
+``oop.reply``          verifier worker → service reply send
 ====================== ======================================================
 
-``detail`` carries the call-site specifics (the scheme name on batcher
-dispatch) and rules may target it with an fnmatch pattern — that is how a
-test storms one signature scheme.
+``detail`` carries the call-site specifics (``"alice->bob"`` on sends,
+the scheme name on batcher dispatch) and rules may target it with an
+fnmatch pattern — that is how a test partitions one endpoint or storms
+one signature scheme.
 """
 from __future__ import annotations
 

@@ -193,12 +193,17 @@ def make_verifier_service(verifier_type: str = "InMemory", **kwargs
     "Tpu" builds the device-batched backend (``device=`` defaults to
     "cuda"); only ``verify_signed(stx, ...)`` pays off on the device — the
     reference-shaped ``verify(ltx)`` SPI verifies contract and platform
-    rules only. "OutOfProcess" (the worker fleet) is not ported yet."""
+    rules only.
+
+    "OutOfProcess" needs ``network_service=`` (the node's messaging — the
+    queue the worker fleet attaches to); ``expected_workers=`` sizes the
+    fleet for /readyz degradation reporting. Its workers
+    (``out_of_process.VerifierWorker(..., device=)``) hold the batchers."""
     if verifier_type == "InMemory":
         return InMemoryTransactionVerifierService(**kwargs)
     if verifier_type == "Tpu":
         return TpuTransactionVerifierService(**kwargs)
     if verifier_type == "OutOfProcess":
-        raise NotImplementedError(
-            "the out-of-process verifier is not ported to corda_tpu_torch yet")
+        from .out_of_process import OutOfProcessTransactionVerifierService
+        return OutOfProcessTransactionVerifierService(**kwargs)
     raise ValueError(f"Unknown verifier type: {verifier_type}")

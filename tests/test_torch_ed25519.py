@@ -111,6 +111,20 @@ def test_prepare_batch_split_byte_identical_to_jax():
     assert list(got[-1]) == [True] * 5 + [False] * 3
 
 
+def test_prepare_batch_split_takes_the_reference_arguments():
+    """The sharded path's call (corda_tpu/parallel/sharded.py:255:
+    ``prepare_batch_split(padded, SPLIT_B_WINDOW, device_tables=False)``)
+    gives the same arrays; device-committed tables are the caller's in the
+    port, so device_tables=True is refused."""
+    items = _signed_items(3)
+    got = ted.prepare_batch_split(items, ted.SPLIT_B_WINDOW,
+                                  device_tables=False)
+    for g, w in zip(got, ted.prepare_batch_split(items)):
+        assert np.array_equal(g, w)
+    with pytest.raises(ValueError, match="device_tables"):
+        ted.prepare_batch_split(items, device_tables=True)
+
+
 def test_point_formulas_match_jax():
     pts, qts = _rand_points(4), _rand_points(4)
     qts[1] = pts[1]                   # doubling through the complete add

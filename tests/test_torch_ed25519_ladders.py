@@ -173,6 +173,18 @@ def test_plain_windowed_matches_the_jax_kernel(jax_verdicts):
     assert list(ok.numpy() & precheck) == WANT8
 
 
+def test_windowed_takes_the_reference_width(jax_verdicts):
+    """verify_core_windowed takes the JAX function's ``w``
+    (corda_tpu/parallel/sharded.py:121 passes ``w=B_WINDOW``) at B_WINDOW,
+    with the JAX kernel's verdicts, and refuses another width."""
+    *wire, _ = ted.prepare_batch_windowed(ITEMS8, device_tables=False)
+    args = (*ted.b7_to_device(wire, "cpu"), *ted.windowed_table("cpu"))
+    ok = ted.verify_core_windowed(*args, w=ted.B_WINDOW)
+    assert np.array_equal(ok.numpy(), jax_verdicts["windowed"])
+    with pytest.raises(ValueError, match="the port's kernels take"):
+        ted.verify_core_windowed(*args, w=8)
+
+
 @pytest.mark.parametrize("ladder", ["shamir", "windowed"])
 def test_plain_ladders_match_the_oracle_on_a_wider_batch(ladder):
     items, want = _items(33)

@@ -76,3 +76,12 @@ def test_default_device_raises_without_cuda():
     for curve in (ecmath.SECP256K1, ecmath.SECP256R1):
         with pytest.raises(RuntimeError, match="cuda"):
             weierstrass.verify_batch(curve, [(curve.g, b"m", 1, 1)])
+    from corda_tpu_torch.network import InMemoryMessagingNetwork
+    from corda_tpu_torch.verifier import VerifierWorker
+    bus = InMemoryMessagingNetwork()
+    bus.create_node("node")
+    with pytest.raises(RuntimeError, match="cuda"):
+        VerifierWorker(bus.create_node("w"), "node")
+    worker = VerifierWorker(bus.create_node("w_cpu"), "node", device="cpu")
+    assert worker.device == torch.device("cpu")
+    worker.stop()

@@ -149,7 +149,13 @@ def test_make_verifier_service_seam():
     assert isinstance(svc, DeviceTransactionVerifierService)
     assert svc.batcher.device.type == "cpu"
     svc.shutdown()
-    with pytest.raises(NotImplementedError):
+    from corda_tpu_torch.network import InMemoryMessagingNetwork
+    from corda_tpu_torch.verifier import OutOfProcessTransactionVerifierService
+    node = InMemoryMessagingNetwork().create_node("node")
+    oop = make_verifier_service("OutOfProcess", network_service=node)
+    assert isinstance(oop, OutOfProcessTransactionVerifierService)
+    oop.shutdown()
+    with pytest.raises(TypeError):   # network_service is required, as there
         make_verifier_service("OutOfProcess")
     with pytest.raises(ValueError):
         make_verifier_service("Bogus")

@@ -399,6 +399,45 @@ def test_plain_r1_split_matches_jax_kernel(r1_case):
     assert np.array_equal((got & precheck) | forced, _oracle(R1, items))
 
 
+def test_reference_width_arguments_accepted(k1_case, r1_case):
+    """The widths and static arguments the JAX package's callers pass
+    (bench.py:152-156, corda_tpu/parallel/sharded.py:181, the r1 kernel's
+    jit statics) are accepted at the port's fixed values, with the same
+    wire arrays and verdicts as without them."""
+    items, arrs, precheck, want = k1_case
+    got = twc.prepare_batch_hybrid_wide(items, twc.HYBRID_G_WINDOW)
+    for g, w in zip(got, [*arrs[:4], precheck]):
+        assert np.array_equal(g, w)
+    core = functools.partial(twc.verify_core_hybrid_wide,
+                             g_w=twc.HYBRID_G_WINDOW)
+    assert np.array_equal(core(*_tensors(arrs)).numpy(), want)
+    items, arrs, precheck, forced, want = r1_case
+    got = twc.prepare_batch_r1_split(R1, items, twc.R1_G_WINDOW)
+    for g, w in zip(got, [*arrs[:5], precheck, forced]):
+        assert np.array_equal(g, w)
+    ok = twc.verify_core_r1_split(*_tensors(arrs), curve_name="secp256r1",
+                                  w=twc.R1_G_WINDOW)
+    assert np.array_equal(ok.numpy(), want)
+
+
+@pytest.mark.parametrize("call", [
+    lambda: twc.prepare_batch_hybrid_wide([], 4),
+    lambda: twc.prepare_batch_r1_split(R1, [], 8),
+    lambda: twc.prepare_batch_windowed_single(K1, [], 8),
+    lambda: twc.verify_core_hybrid_wide(*[None] * 7, g_w=4),
+    lambda: twc.verify_core_r1_split(*[None] * 11, w=8),
+    lambda: twc.verify_core_r1_split(*[None] * 11, curve_name="secp256k1"),
+    lambda: twc.verify_core_windowed_single(*[None] * 9, "secp256k1", w=8),
+], ids=["hybrid_prep_g_w", "r1_prep_w", "windowed_prep_w", "hybrid_g_w",
+        "r1_w", "r1_curve_name", "windowed_w"])
+def test_other_widths_refused(call):
+    """A width or curve other than the one the port's kernels are built
+    for raises ValueError before any work, never a silently different
+    wire form."""
+    with pytest.raises(ValueError, match="the port's kernels take"):
+        call()
+
+
 # ---------------------------------------------------------------------------
 # Batch entry points on the CPU
 # ---------------------------------------------------------------------------

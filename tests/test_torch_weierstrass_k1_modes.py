@@ -102,6 +102,22 @@ def test_windowed_prep_identical_to_jax():
     assert got[5][[3, 4]].all()          # crafted r + n < p
 
 
+def test_windowed_width_argument_accepted():
+    """prepare_batch_windowed_single and verify_core_windowed_single take
+    the JAX functions' width ``w`` at the port's R1_G_WINDOW, with the same
+    arrays and verdicts as without it."""
+    items = _prep_items(3)
+    got = twc.prepare_batch_windowed_single(K1, items, twc.R1_G_WINDOW)
+    _assert_arrays_equal(
+        ("g_idx", "q_digits", "q_x", "q_y", "r_limbs", "rn_ok", "precheck"),
+        got, twc.prepare_batch_windowed_single(K1, items))
+    *wire, precheck = got
+    ok = twc.verify_core_windowed_single(
+        *_tensors(wire), *twc.windowed_tables(K1, "cpu"), "secp256k1",
+        w=twc.R1_G_WINDOW)
+    assert np.array_equal(ok.numpy() & precheck, _oracle(K1, items))
+
+
 def test_glv_prep_keeps_the_128_bit_bound(monkeypatch):
     """A GLV half of more than 128 bits is refused, never truncated."""
     items = _prep_items(1)

@@ -5,8 +5,8 @@ version, and drives the signature-verification service paths end to end —
 Ed25519 and ECDSA (secp256k1, secp256r1) —, every ECDSA verify mode of
 ``verify_batch``, the Merkle hashing path (bulk tear-off proof checks and
 bulk transaction ids), the sharded path over meshes of one card, the
-SIMM margin and the out-of-process verifier (workers on the card behind an
-in-memory bus).
+SIMM margin, the out-of-process verifier (workers on the card behind an
+in-memory bus) and the in-process verifier fleet under its controller.
 
     python3 chip_smoke.py [--seed N] [--only-kernels NAMES] [--ab PARENT]
 
@@ -130,6 +130,22 @@ Phases (any failure exits non-zero; nothing is caught):
              workers, one stopped unannounced and detached before the bus
              is pumped: every future resolves exactly once with the
              construction's outcome and the dead worker verified none.
+7c. fleet  — verifier.fleet on the card: fleet_bench with 1 and 2 workers
+             on the one card (devices=[cuda:0] * n, host_crossover=0) at the
+             graft entry's shape (16 n groups of 256) and the bulk shape (4
+             groups of 32768): fleet verifies/s, scaling efficiency, busy
+             skew, every worker's signatures > 0, a stitched trace, the
+             controller steady with no action, and B2 launched (its count
+             set to 0 just before each run, read just after); the service
+             phase's 512 mixed transactions through a 2-worker fleet's
+             service (outcomes equal to the construction, B2, B3 and B4
+             launched, no host routing, every breaker closed); and the
+             controller's three degradation rungs applied through
+             batcher_ladder on a 1-worker fleet's batcher: an interactive
+             1024 group on the host (no kernel launched) and a bulk group
+             of 4096 cut at the 256 floor (at least 16 B2 launches), then
+             the rungs reverted: the same group in fewer launches, every
+             rung off and max_pending restored.
 8. ab      — only with --ab PARENT (a directory holding an earlier commit's
              corda_tpu_torch/csrc, e.g. unpacked by git archive): that
              commit's B3, B5, both B7 and both B8 kernels built beside this
@@ -373,6 +389,14 @@ ORACLE_SAMPLE = 256
 #: to two workers, one of which dies before the bus is pumped; every wait
 #: on the bus under OOP_DEADLINE_S.
 OOP_BULK, OOP_DEATH_TXS, OOP_DEADLINE_S = 32768, 64, 600.0
+#: Fleet phase: fleet_bench on 1 and 2 workers of the card at two shapes,
+#: (groups a worker, groups in all, group size): 16 a worker of 256, the
+#: graft entry's shape, and 4 in all of 32768, the bulk shape; the mixed
+#: transactions through 2 workers; the degradation ladder on one worker's
+#: batcher with an interactive group of 1024 and a bulk group of 4096.
+FLEET_WORKERS = (1, 2)
+FLEET_SHAPES = ((16, 0, 256), (0, 4, 32768))
+FLEET_LADDER_BULK, FLEET_LADDER_INTERACTIVE = 4096, 1024
 
 #: B6 (csrc/sha256.cu): 32-bit integer instructions (LOP3, SHF, IADD3) of a
 #: Merkle pair — a compression and the pad block's — and of one block of
@@ -1212,6 +1236,185 @@ def oop_phase(card, stxs, tx_want, ed_base, bulk, bulk_want,
                     "dead_verified": dead.verified_count,
                     "alive_verified": alive.verified_count,
                     "kernel_launches": death_launches}
+    return out
+
+
+def fleet_phase(card, dev, stxs, tx_want, ed_base, seed: int,
+                oop_launches: dict) -> dict:
+    """Phase 7c: the in-process verifier fleet on the card — fleet_bench on
+    1 and 2 workers at two shapes, the mixed transactions through a
+    2-worker fleet, and the controller's degradation ladder on a worker's
+    batcher. ``oop_launches`` is phase 7b's mixed run's launch counts, for
+    the mixed run's line."""
+    from corda_tpu_torch.core.crypto import PublicKey
+    from corda_tpu_torch.core.crypto.schemes import EDDSA_ED25519_SHA512
+    from corda_tpu_torch.ops import ed25519 as ed
+    from corda_tpu_torch.ops import weierstrass as wc
+    from corda_tpu_torch.verifier import InProcessFleet, fleet_bench
+    from corda_tpu_torch.verifier.controller import batcher_ladder
+
+    out = {"card": card, "bench": []}
+    # 1. fleet_bench: one worker a device entry, several on the one card
+    for per_worker, in_all, size in FLEET_SHAPES:
+        for n in FLEET_WORKERS:
+            groups = per_worker * n + in_all
+            ed.verify_core_split.launches = 0
+            t0 = time.perf_counter()
+            row = fleet_bench(n, groups=groups, group_size=size,
+                              use_device=True, devices=[dev] * n,
+                              host_crossover=0, timeout_s=OOP_DEADLINE_S)
+            wall = time.perf_counter() - t0
+            launches = ed.verify_core_split.launches
+            if (len(row["per_worker_sigs"]) != n
+                    or not all(c > 0 for c in row["per_worker_sigs"].values())):
+                raise SystemExit(f"fleet: a worker verified nothing: {row}")
+            if row["stitched_trace_depth"] <= 0:
+                raise SystemExit(f"fleet: no stitched trace: {row}")
+            if row["controller_state"] != "steady" \
+                    or row["controller_actions"] != 0:
+                raise SystemExit(f"fleet: the controller acted on a healthy "
+                                 f"fleet: {row}")
+            if launches == 0:
+                raise SystemExit(f"fleet: B2 launched no time: {row}")
+            out["bench"].append({**row, "b2_launches": launches,
+                                 "call_wall_s": wall})
+            log(json.dumps({"fleet_bench": out["bench"][-1]}))
+
+    # 2. the mixed transactions through a 2-worker fleet's service
+    fleet = InProcessFleet(2, devices=[dev, dev], host_crossover=0)
+    try:
+        deadline = time.monotonic() + 60
+        while fleet.service.queue.worker_count < 2:
+            if time.monotonic() > deadline:
+                raise SystemExit("fleet: the workers did not attach")
+            time.sleep(0.01)
+        ed.verify_core_split.launches = 0
+        wc.verify_core_hybrid_wide.launches = 0
+        wc.verify_core_r1_split.launches = 0
+        services = SmokeServices()
+        t0 = time.perf_counter()
+        futs = [fleet.service.verify_signed(stx, services) for stx in stxs]
+        for f in futs:
+            f.exception(timeout=OOP_DEADLINE_S)
+        mixed_s = time.perf_counter() - t0
+        mixed_launches = {"ed25519": ed.verify_core_split.launches,
+                          "secp256k1": wc.verify_core_hybrid_wide.launches,
+                          "secp256r1": wc.verify_core_r1_split.launches}
+        if tx_outcomes(futs) != tx_want:
+            raise SystemExit("fleet: verify_signed outcomes disagree with "
+                             "the construction")
+        if 0 in mixed_launches.values():
+            raise SystemExit("fleet: the mixed run launched a kernel no "
+                             f"time: {mixed_launches}")
+        # each transaction carries one signature a scheme, and a worker's
+        # window of 2 groups batches at worst each transaction alone: more
+        # launches than transactions means batching got worse than that
+        launch_bound = {s: len(stxs) for s in mixed_launches}
+        if any(mixed_launches[s] > launch_bound[s] for s in launch_bound):
+            raise SystemExit(f"fleet: the mixed run took {mixed_launches} "
+                             f"launches, above {launch_bound}")
+        snaps = [b.metrics.snapshot() for b in fleet.batchers]
+        per_worker = {w.network_service.my_address: w.verified_count
+                      for w in fleet.workers}
+        for b, snap in zip(fleet.batchers, snaps):
+            require_clean(snap, b.breaker_status(),
+                          count(snap, "SigBatcher.Checked"), "fleet mixed")
+            if count(snap, "SigBatcher.HostRouted") != 0:
+                raise SystemExit("fleet: the mixed run routed to the host")
+        checked = sum(count(s, "SigBatcher.DeviceChecked") for s in snaps)
+        if checked != 3 * len(stxs):
+            raise SystemExit(f"fleet: {checked} signatures checked on the "
+                             f"card, not {3 * len(stxs)}")
+    finally:
+        fleet.close()
+    out["mixed"] = {"txs": len(stxs), "workers": 2, "wall_s": mixed_s,
+                    "fleet_mixed_tx_per_s": len(stxs) / mixed_s,
+                    "kernel_launches": mixed_launches,
+                    "kernel_launches_at_most": launch_bound,
+                    "oop_kernel_launches": oop_launches,
+                    "verified_per_worker": per_worker,
+                    "device_checked": checked}
+    log(json.dumps({"fleet_mixed": out["mixed"]}))
+
+    # 3. the degradation ladder on a worker's batcher
+    inter_items, inter_want = tile(ed_base, FLEET_LADDER_INTERACTIVE,
+                                   seed + 1)
+    bulk_items, bulk_want = tile(ed_base, FLEET_LADDER_BULK, seed + 2)
+    inter = [(PublicKey(EDDSA_ED25519_SHA512, p), s, m)
+             for p, s, m in inter_items]
+    bulk = [(PublicKey(EDDSA_ED25519_SHA512, p), s, m)
+            for p, s, m in bulk_items]
+    fleet = InProcessFleet(1, devices=[dev], host_crossover=0)
+    try:
+        batcher = fleet.batchers[0]
+        batcher.submit_group(bulk).result(timeout=OOP_DEADLINE_S)   # warm
+        ladder = batcher_ladder(fleet.batchers)
+        for step in ladder:
+            step.apply()
+            step.applied = True
+        applied = batcher.degradation_status()
+        if applied != {"bulk_shed": True, "ladder_shrunk": True,
+                       "interactive_host": True,
+                       "max_pending": batcher.interactive_batch}:
+            raise SystemExit(f"fleet: the rungs did not apply: {applied}")
+        def host_checked():
+            # the host bucket's items: checked, not device-checked
+            snap = batcher.metrics.snapshot()
+            return (count(snap, "SigBatcher.Checked")
+                    - count(snap, "SigBatcher.DeviceChecked"))
+
+        ed.verify_core_split.launches = 0
+        host0 = host_checked()
+        t0 = time.perf_counter()
+        got = batcher.submit_group(
+            inter, latency_class="interactive").result(timeout=OOP_DEADLINE_S)
+        inter_s = time.perf_counter() - t0
+        inter_launches = ed.verify_core_split.launches
+        host_routed = host_checked() - host0
+        if got != inter_want or inter_launches != 0 \
+                or host_routed != len(inter):
+            raise SystemExit(f"fleet: the interactive group under the ladder "
+                             f"({inter_launches} launches, {host_routed} on "
+                             "the host) or its verdicts are wrong")
+        ed.verify_core_split.launches = 0
+        t0 = time.perf_counter()
+        got = batcher.submit_group(bulk).result(timeout=OOP_DEADLINE_S)
+        shrunk_s = time.perf_counter() - t0
+        shrunk_launches = ed.verify_core_split.launches
+        if got != bulk_want or shrunk_launches < FLEET_LADDER_BULK // 256:
+            raise SystemExit(f"fleet: the bulk group under the shrunk ladder "
+                             f"took {shrunk_launches} launches or its "
+                             "verdicts are wrong")
+        for step in reversed(ladder):
+            step.revert()
+            step.applied = False
+        reverted = batcher.degradation_status()
+        if reverted != {"bulk_shed": False, "ladder_shrunk": False,
+                        "interactive_host": False, "max_pending": None}:
+            raise SystemExit(f"fleet: the rungs did not revert: {reverted}")
+        ed.verify_core_split.launches = 0
+        t0 = time.perf_counter()
+        got = batcher.submit_group(bulk).result(timeout=OOP_DEADLINE_S)
+        restored_s = time.perf_counter() - t0
+        restored_launches = ed.verify_core_split.launches
+        if got != bulk_want or not 0 < restored_launches < shrunk_launches:
+            raise SystemExit(f"fleet: the bulk group after the revert took "
+                             f"{restored_launches} launches against "
+                             f"{shrunk_launches}, or its verdicts are wrong")
+        require_clean(batcher.metrics.snapshot(), batcher.breaker_status(),
+                      3 * len(bulk), "fleet ladder")
+    finally:
+        fleet.close()
+    out["ladder"] = {"applied": applied, "reverted": reverted,
+                     "interactive_items": len(inter),
+                     "interactive_launches": inter_launches,
+                     "interactive_host_routed": host_routed,
+                     "interactive_wall_s": inter_s,
+                     "bulk_items": len(bulk),
+                     "shrunk_launches": shrunk_launches,
+                     "shrunk_wall_s": shrunk_s,
+                     "restored_launches": restored_launches,
+                     "restored_wall_s": restored_s}
     return out
 
 
@@ -2782,6 +2985,12 @@ def main() -> int:
                     service["service_verifies_per_s"])
     log(json.dumps({"path": "oop", **oop}))
     t_phase = log_phase("oop", t_phase)
+
+    # -- phase 7c: the in-process verifier fleet ------------------------------
+    fleet_out = fleet_phase(card, dev, stxs, tx_want, base, args.seed + 59,
+                            oop["oop_mixed_kernel_launches"])
+    log(json.dumps({"path": "fleet", **fleet_out}))
+    t_phase = log_phase("fleet", t_phase)
 
     # -- phase 8: an earlier commit's B3, B5, B7 and B8 ----------------------
     if args.ab is not None:

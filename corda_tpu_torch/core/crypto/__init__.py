@@ -1,6 +1,7 @@
 """Host-side cryptography: hashing, signature schemes, keys, the ``Crypto``
 facade, composite keys and Merkle trees (copies of corda_tpu.core.crypto's
-modules of the same names; SPHINCS-256 and RSA are not ported yet)."""
+modules of the same names; SPHINCS-256 in ``sphincs``, RSA through the
+``cryptography`` package, imported only when an RSA key is used)."""
 from .secure_hash import SecureHash, sha256, sha256_twice, hash_concat
 from .schemes import (
     SignatureScheme,

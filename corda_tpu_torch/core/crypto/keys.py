@@ -186,8 +186,21 @@ def generate_keypair(scheme: SignatureScheme = DEFAULT_SIGNATURE_SCHEME,
             PublicKey(scheme, sec1_compress(curve, pub_pt)),
             PrivateKey(scheme, d.to_bytes(32, "big")),
         )
-    if sid in (SPHINCS256_SHA256.scheme_number_id, RSA_SHA256.scheme_number_id):
-        # SPHINCS-256 and RSA keys are not in this package yet (see ROADMAP.md)
-        raise NotImplementedError(
-            f"key generation for {scheme} is not ported to corda_tpu_torch")
+    if sid == SPHINCS256_SHA256.scheme_number_id:
+        from . import sphincs
+        entropy = entropy if entropy is not None else os.urandom(32)
+        pub, priv = sphincs.keygen(entropy)
+        return KeyPair(PublicKey(scheme, pub), PrivateKey(scheme, priv))
+    if sid == RSA_SHA256.scheme_number_id:
+        from cryptography.hazmat.primitives.asymmetric import rsa
+        from cryptography.hazmat.primitives import serialization
+        if entropy is not None:
+            raise ValueError("deterministic RSA key generation is not supported")
+        key = rsa.generate_private_key(public_exponent=65537, key_size=3072)
+        pub = key.public_key().public_bytes(
+            serialization.Encoding.DER, serialization.PublicFormat.SubjectPublicKeyInfo)
+        priv = key.private_bytes(
+            serialization.Encoding.DER, serialization.PrivateFormat.PKCS8,
+            serialization.NoEncryption())
+        return KeyPair(PublicKey(scheme, pub), PrivateKey(scheme, priv))
     raise ValueError(f"Key generation not supported for scheme {scheme}")

@@ -5,7 +5,8 @@ DigitalSignature.WithKey (DigitalSignature.kt:25); CryptoUtils.kt:49.
 
 The hot path in production is NOT this module: batched verification runs on the GPU
 via ``corda_tpu_torch.ops`` / the verifier service. This host path is the semantic
-oracle, the signing path, and the route for schemes with no device kernel yet.
+oracle, the signing path, and the route for schemes with no device kernel
+(SPHINCS-256, RSA).
 Dispatch is on ``scheme_number_id`` (an int), so keys built by any package that
 shares the scheme numbers route the same way.
 """
@@ -143,9 +144,14 @@ class Crypto:
             d = int.from_bytes(private.encoded, "big")
             r, s = ecmath.ecdsa_sign(curve, d, content)
             return ecmath.ecdsa_sig_to_der(r, s)
-        if sid in (RSA_SHA256.scheme_number_id, SPHINCS256_SHA256.scheme_number_id):
-            raise NotImplementedError(
-                f"signing with {private.scheme} is not ported to corda_tpu_torch")
+        if sid == RSA_SHA256.scheme_number_id:
+            from cryptography.hazmat.primitives.asymmetric import padding
+            from cryptography.hazmat.primitives import hashes, serialization
+            key = serialization.load_der_private_key(private.encoded, password=None)
+            return key.sign(content, padding.PKCS1v15(), hashes.SHA256())
+        if sid == SPHINCS256_SHA256.scheme_number_id:
+            from . import sphincs
+            return sphincs.sign(private.encoded, content)
         raise SignatureException(f"Unsupported scheme for signing: {private.scheme}")
 
     @staticmethod
@@ -200,9 +206,19 @@ class Crypto:
             if fast is not None:
                 return fast
             return ecmath.ecdsa_verify(curve, point, content, r, s)
-        if sid in (RSA_SHA256.scheme_number_id, SPHINCS256_SHA256.scheme_number_id):
-            raise NotImplementedError(
-                f"verifying {public.scheme} is not ported to corda_tpu_torch")
+        if sid == RSA_SHA256.scheme_number_id:
+            from cryptography.hazmat.primitives.asymmetric import padding
+            from cryptography.hazmat.primitives import hashes, serialization
+            from cryptography.exceptions import InvalidSignature
+            key = serialization.load_der_public_key(public.encoded)
+            try:
+                key.verify(signature, content, padding.PKCS1v15(), hashes.SHA256())
+                return True
+            except InvalidSignature:
+                return False
+        if sid == SPHINCS256_SHA256.scheme_number_id:
+            from . import sphincs
+            return sphincs.verify(public.encoded, content, signature)
         raise SignatureException(f"Unsupported scheme for verification: {public.scheme}")
 
     @staticmethod

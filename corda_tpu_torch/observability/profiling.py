@@ -28,7 +28,7 @@ import threading
 import time
 from collections import OrderedDict, deque
 
-from ..utils.metrics import Histogram
+from ..utils.metrics import Histogram, MetricRegistry
 from .tracing import get_tracer
 
 
@@ -133,6 +133,7 @@ class KernelProfiler:
         self._occupancy: dict[str, list] = {}
         # id(device value) -> kernel name, for finish-time attribution
         self._pending: OrderedDict = OrderedDict()
+        self._warm_compiles = 0
         self.overlap = OverlapTracker()
         # shared histograms — publish() mirrors these into registries, so
         # one process-wide distribution feeds every /metrics surface
@@ -195,6 +196,15 @@ class KernelProfiler:
             row[3] += 1
         self.occupancy_hist.update(pct)
 
+    def occupancy_mean_live(self) -> dict:
+        """Mean live items per device batch, per scheme — the signal the
+        batcher's bucket-ladder tuner reads (SignatureBatcher
+        .ladder_from_occupancy): sustained small batches pull the ladder
+        floor down, sustained megabatches push it up."""
+        with self._lock:
+            return {scheme: row[0] / row[3]
+                    for scheme, row in self._occupancy.items() if row[3]}
+
     # -- device-wait attribution --------------------------------------------
     def note_pending(self, handle, name: str) -> None:
         """Remember which kernel produced an async pending value so
@@ -220,6 +230,20 @@ class KernelProfiler:
             st.device_wait_s += seconds
         self.device_wait_hist.update(seconds)
 
+    # -- warmup boundary ----------------------------------------------------
+    def mark_warm(self) -> None:
+        """Stamp the current build count as the warmup boundary. Any
+        kernel build after this is a steady-state miss — a bench smoke gate
+        asserts compiles_since_warm() == 0 after the warm phase."""
+        with self._lock:
+            self._warm_compiles = sum(s.compiles
+                                      for s in self._kernels.values())
+
+    def compiles_since_warm(self) -> int:
+        with self._lock:
+            total = sum(s.compiles for s in self._kernels.values())
+            return max(0, total - self._warm_compiles)
+
     # -- aggregate views ----------------------------------------------------
     def compile_totals(self) -> dict:
         with self._lock:
@@ -230,6 +254,12 @@ class KernelProfiler:
                 "compile_cache_hits": sum(s.cache_hits
                                           for s in self._kernels.values()),
             }
+
+    def occupancy_pct_per_scheme(self) -> dict:
+        with self._lock:
+            return {scheme: round(100.0 * live / cap, 2)
+                    for scheme, (live, cap, *_rest)
+                    in self._occupancy.items() if cap}
 
     def snapshot(self) -> dict:
         """The /debug/profile payload: everything the recorder knows."""
@@ -253,6 +283,49 @@ class KernelProfiler:
             "compile_seconds": self.compile_hist.snapshot_fields(),
             "occupancy_pct": self.occupancy_hist.snapshot_fields(),
         }
+
+    def publish(self, registry: MetricRegistry) -> None:
+        """Mirror the recorder into a MetricRegistry: live gauges reading
+        the shared singleton, plus the shared histograms installed by
+        reference — publishing into N registries (node monitoring, bench's
+        private one) shows ONE process-wide distribution in each."""
+        registry.gauge("Profiler.CompileSecondsTotal",
+                       lambda: self.compile_totals()["compile_s_total"])
+        registry.gauge("Profiler.Compiles",
+                       lambda: self.compile_totals()["compiles"])
+        registry.gauge("Profiler.CompileCacheHits",
+                       lambda: self.compile_totals()["compile_cache_hits"])
+        registry.gauge("Profiler.PrepOverlapPct",
+                       lambda: round(self.overlap.overlap_pct(), 2))
+
+        def occupancy_gauge(scheme):
+            def read():
+                return self.occupancy_pct_per_scheme().get(scheme, 0.0)
+            return read
+
+        for scheme in ("ed25519", "secp256k1", "secp256r1"):
+            registry.gauge(f"Profiler.{scheme}.OccupancyPct",
+                           occupancy_gauge(scheme))
+        registry.register("kernel_dispatch_seconds", self.dispatch_hist)
+        registry.register("kernel_device_wait_seconds", self.device_wait_hist)
+        registry.register("kernel_compile_seconds", self.compile_hist)
+        registry.register("kernel_batch_occupancy_pct", self.occupancy_hist)
+
+    def reset(self) -> None:
+        """Fresh counters (bench runs, tests). Histograms are replaced, so
+        registries that held the old ones keep a frozen final view — call
+        publish() again to re-share."""
+        with self._lock:
+            self._kernels.clear()
+            self._occupancy.clear()
+            self._pending.clear()
+            self._warm_compiles = 0
+        self.overlap = OverlapTracker()
+        self.dispatch_hist = Histogram()
+        self.device_wait_hist = Histogram()
+        self.compile_hist = Histogram()
+        self.occupancy_hist = Histogram()
+
 
 # ---------------------------------------------------------------------------
 # Process-global profiler seam (the tracer pattern, but always-on)

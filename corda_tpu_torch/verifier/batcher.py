@@ -293,10 +293,18 @@ class SignatureBatcher:
         # queued (interactive is always admitted) — backpressure lands on
         # the bulk producers instead of growing the queue without bound
         self.max_pending = max_pending
+        # degradation-ladder state (verifier/controller.py): each rung is
+        # reversible, saving whatever it overrides so revert is exact
+        self._shed_active = False
+        self._saved_max_pending: int | None = None
+        self._ladder_shrunk = False
+        self._saved_ladders: tuple | None = None
+        self._force_host_interactive = False
         # shape-bucketed batch sizes: bulk drains are cut at power-of-two
         # ladder rungs so launches see a fixed shape set across
         # varying arrival rates. None → default ladder for every scheme; a
         # sequence → that ladder for every scheme; a dict → per-scheme
+        # (see ladder_from_occupancy for tuning from flight-recorder stats)
         self._default_ladder = self._pow2_ladder(self.LADDER_FLOOR, max_batch)
         if bucket_ladder is None:
             self.bucket_ladder: dict[str, tuple] = {}
@@ -435,6 +443,80 @@ class SignatureBatcher:
             cut = depth
         return min(cut, self.max_batch, depth)
 
+    # -- degradation ladder hooks (verifier/controller.py) -------------------
+    def shed_bulk(self, on: bool, cap: int | None = None) -> None:
+        """Controller rung 1: clamp bulk admission hard. Bulk producers
+        block at a small cap (default ``interactive_batch``) so offered
+        throughput load backs off while interactive traffic — always
+        admitted — keeps its latency. Reversal restores the configured
+        ``max_pending`` exactly (including None = uncapped)."""
+        with self._lock:
+            if on and not self._shed_active:
+                self._shed_active = True
+                self._saved_max_pending = self.max_pending
+                self.max_pending = (cap if cap is not None
+                                    else self.interactive_batch)
+            elif not on and self._shed_active:
+                self._shed_active = False
+                self.max_pending = self._saved_max_pending
+                self._saved_max_pending = None
+            self._lock.notify_all()
+
+    def shrink_ladder(self, on: bool) -> None:
+        """Controller rung 2: collapse the bulk batch ladder to its floor
+        so drains cut small, low-latency batches — queueing delay behind a
+        coalescing megabatch is what burns the latency SLO under stress.
+        The pre-shrink ladders (default + per-scheme) are restored on
+        reversal."""
+        with self._lock:
+            if on and not self._ladder_shrunk:
+                self._ladder_shrunk = True
+                self._saved_ladders = (self._default_ladder,
+                                       self.bucket_ladder)
+                self._default_ladder = (min(self.LADDER_FLOOR,
+                                            self.max_batch),)
+                self.bucket_ladder = {}
+            elif not on and self._ladder_shrunk:
+                self._ladder_shrunk = False
+                self._default_ladder, self.bucket_ladder = \
+                    self._saved_ladders
+                self._saved_ladders = None
+            self._lock.notify_all()
+
+    def route_interactive_host(self, on: bool) -> None:
+        """Controller rung 3 (last resort): route interactive-class
+        submissions to the host bucket — a few host-verified signatures
+        beat queueing behind a saturated device path. Bulk keeps the
+        device."""
+        self._force_host_interactive = bool(on)
+
+    def degradation_status(self) -> dict:
+        """Which rungs are applied (fleet_status / readyz diagnostics)."""
+        return {"bulk_shed": self._shed_active,
+                "ladder_shrunk": self._ladder_shrunk,
+                "interactive_host": self._force_host_interactive,
+                "max_pending": self.max_pending}
+
+    @classmethod
+    def ladder_from_occupancy(cls, profiler=None, max_batch: int = 32768,
+                              min_floor: int | None = None) -> dict:
+        """Per-scheme bucket ladders tuned from the flight recorder's
+        occupancy stats: the floor doubles toward each scheme's observed
+        mean live batch (one rung of headroom below it), so a scheme that
+        sustains megabatches skips the tiny rungs while a trickle-fed one
+        keeps them. Feed the result to ``SignatureBatcher(bucket_ladder=)``
+        on the next (re)start."""
+        if profiler is None:
+            profiler = get_profiler()
+        floor0 = min_floor if min_floor is not None else cls.LADDER_FLOOR
+        ladders = {}
+        for scheme, mean_live in profiler.occupancy_mean_live().items():
+            floor = floor0
+            while floor * 4 <= mean_live and floor * 2 <= max_batch:
+                floor *= 2
+            ladders[scheme] = cls._pow2_ladder(floor, max_batch)
+        return ladders
+
     # -- client side ---------------------------------------------------------
     def submit(self, key: PublicKey, signature: bytes, content: bytes,
                ctx=None, latency_class: str = INTERACTIVE) -> Future:
@@ -488,9 +570,11 @@ class SignatureBatcher:
                  latency_class: str = BULK) -> None:
         # bucket lookups happen OUTSIDE the condition lock: a 32k-item
         # submission must not hold the dispatcher up for the whole scan
+        force_host = (self._force_host_interactive
+                      and latency_class == INTERACTIVE)
         routed: dict[str, list[_Pending]] = {}
         for p in pendings:
-            bucket = ("host" if not self.use_device
+            bucket = ("host" if not self.use_device or force_host
                       else _BUCKETS.get(p.key.scheme.scheme_number_id, "host"))
             routed.setdefault(bucket, []).append(p)
         with self._lock:
@@ -503,7 +587,9 @@ class SignatureBatcher:
                 # drains notify this wait as depth comes down.
                 blocked_t0 = _time.time()
                 blocked = False
-                while (not self._closed
+                # the cap is re-read each wake: the controller's shed rung
+                # may lift it to None (uncapped) while producers wait here
+                while (not self._closed and self.max_pending is not None
                        and sum(len(q.bulk) for q in self._queues.values())
                        >= self.max_pending):
                     blocked = True

@@ -6,16 +6,17 @@ Ed25519 and ECDSA (secp256k1, secp256r1) —, every ECDSA verify mode of
 ``verify_batch``, the Merkle hashing path (bulk tear-off proof checks and
 bulk transaction ids), the sharded path over meshes of one card, the
 SIMM margin, the out-of-process verifier (workers on the card behind an
-in-memory bus) and the in-process verifier fleet under its controller.
+in-memory bus), the in-process verifier fleet under its controller, and
+the flow framework: flows on a MockNetwork verifying through the card.
 
     python3 chip_smoke.py [--seed N] [--only-kernels NAMES] [--ab PARENT]
 
 Phases (any failure exits non-zero; nothing is caught):
 
 1. probe   — card name and power limit (nvidia-smi), torch/CUDA versions,
-             parallel build of the ten CUDA kernel libraries and
-             libscalarmath (seconds, and nvcc's register/spill report); the
-             native scalar prep must be in use.
+             parallel build of the ten CUDA kernel libraries,
+             libscalarmath and libkvlog (seconds, and nvcc's register/spill
+             report); the native scalar prep must be in use.
 2. kernels — each kernel against its plain PyTorch version on the card at
              buckets 256, 1024 (the interactive batch), 4096 and 32768:
              B2 Ed25519 split-k, B3 secp256k1 hybrid GLV and B4 secp256r1
@@ -146,6 +147,31 @@ Phases (any failure exits non-zero; nothing is caught):
              of 4096 cut at the 256 floor (at least 16 B2 launches), then
              the rungs reverted: the same group in fewer launches, every
              rung off and max_pending restored.
+7d. flows  — the flow framework on the card. A MockNetwork(device="cuda")
+             with a SimpleNotaryService notary and three parties whose
+             identity keys are Ed25519, secp256k1 and secp256r1, each
+             party's verifier service the port's
+             TpuTransactionVerifierService(batcher=SignatureBatcher(
+             device="cuda", host_crossover=0)): each party finalises 512
+             DummyContract issuances to the other two (1,536 transactions,
+             each verified by its two receivers at their flows' Verify
+             yields), and the Ed25519 party one more whose signature has a
+             flipped byte: its receivers' handlers fail with
+             SignatureException thrown at the yield site, every other flow
+             returns, every party's storage and vault hold the 1,536
+             transactions and its states, B2, B3 and B4 launched (counts set
+             to 0 just before, read just after) fewer times than each
+             scheme has transactions, no host routing, every breaker
+             closed. Then the rates oracle: 16 fixes through
+             RatesFixQueryFlow / RatesFixSignFlow, and RatesOracle.sign_batch
+             on the oracle node's device over 131,072 oracle-shaped
+             tear-offs (phase 4's 4,096 transactions with the oracle's key,
+             tiled x32, 1/16 tampered) in turns with
+             verify_filtered_batch(use_device=False): every outcome the
+             construction's and the host route's, B6 launched. Then
+             SimmRevaluationFlow between two card nodes on the demo book and
+             a 4,096-trade book: B10 launched twice a flow (once a side),
+             the agreed cents those of compute_margin_cents on the card.
 8. ab      — only with --ab PARENT (a directory holding an earlier commit's
              corda_tpu_torch/csrc, e.g. unpacked by git archive): that
              commit's B3, B5, both B7 and both B8 kernels built beside this
@@ -397,6 +423,25 @@ OOP_BULK, OOP_DEATH_TXS, OOP_DEADLINE_S = 32768, 64, 600.0
 FLEET_WORKERS = (1, 2)
 FLEET_SHAPES = ((16, 0, 256), (0, 4, 32768))
 FLEET_LADDER_BULK, FLEET_LADDER_INTERACTIVE = 4096, 1024
+#: Flows phase: three parties, one an identity scheme, finalise
+#: FLOWS_PER_PARTY issuances each to the other two; the Ed25519 party's
+#: tampered issuance starts after its FLOW_BAD_AT-th. The oracle answers
+#: ORACLE_FIXES fixes over the bus, then signs the Merkle phase's tear-offs
+#: (its construction, the oracle's own key) in bulk; of the 4,096 distinct
+#: transactions it holds the fix of ORACLE_AGREED's. SIMM agrees the demo
+#: book and a seeded book of SIMM_FLOW_TRADES trades.
+FLOWS_PER_PARTY, FLOW_BAD_AT = 512, 255
+#: The receivers' interactive deadline (its stall tick is a fifth of it). A
+#: flow's signatures reach its receiver's batcher one message at a time,
+#: each message decoded by the pure-Python codec on the driving thread, so
+#: at the batcher's default 2 ms (0.4 ms stall tick) they flush nearly
+#: alone: a probe of FLOW_PROBE issuances a party runs first at the
+#: default and prints its launches; the full run coalesces on this
+#: deadline, as tests/test_verify_suspension.py coalesces on 0.25 s.
+FLOW_INTERACTIVE_S, FLOW_PROBE = 0.05, 64
+ORACLE_FIXES, ORACLE_AGREED = 16, 7
+SIMM_FLOW_TRADES = 4096
+FLOWS_IDLE_S = 300.0
 
 #: B6 (csrc/sha256.cu): 32-bit integer instructions (LOP3, SHF, IADD3) of a
 #: Merkle pair — a compression and the pad block's — and of one block of
@@ -1752,6 +1797,369 @@ def merkle_phase(dev, card, seed: int) -> tuple[dict, dict]:
 
 
 # ---------------------------------------------------------------------------
+# Phase 7d: the flow framework on the card
+# ---------------------------------------------------------------------------
+
+def _sign_job(job) -> bytes:
+    """One host signature (the port's Crypto.do_sign) on a pool worker."""
+    from corda_tpu_torch.core.crypto.keys import PrivateKey
+    from corda_tpu_torch.core.crypto.schemes import scheme_by_id
+    from corda_tpu_torch.core.crypto.signatures import Crypto
+    scheme_id, private, msg = job
+    return Crypto.do_sign(PrivateKey(scheme_by_id(scheme_id), private), msg)
+
+
+def finality_run(card, dev, seed: int, ctx, per_party: int,
+                 interactive_s: float | None,
+                 coalesce: bool) -> tuple[dict, dict]:
+    """Phase 7d, part 1: 3 x ``per_party`` FinalityFlows among three
+    parties of different identity schemes, each receiver verifying through
+    its own batcher on ``dev`` (``interactive_s``: its interactive deadline,
+    None for the default), and one tampered transaction. With
+    ``coalesce``, fails unless every scheme launched fewer times than it
+    has transactions. Returns (results, launches by scheme)."""
+    from corda_tpu_torch.core.crypto import generate_keypair
+    from corda_tpu_torch.core.crypto.schemes import (ECDSA_SECP256K1_SHA256,
+                                                     ECDSA_SECP256R1_SHA256,
+                                                     EDDSA_ED25519_SHA512)
+    from corda_tpu_torch.core.crypto.signatures import DigitalSignatureWithKey
+    from corda_tpu_torch.core.transactions import (SignedTransaction,
+                                                   TransactionBuilder)
+    from corda_tpu_torch.flows.library import (FinalityFlow,
+                                               NotifyTransactionHandler)
+    from corda_tpu_torch.ops import ed25519 as ed
+    from corda_tpu_torch.ops import weierstrass as wc
+    from corda_tpu_torch.testing import DummyContract, DummyState, MockNetwork
+    from corda_tpu_torch.verifier import (SignatureBatcher,
+                                          TpuTransactionVerifierService)
+    schemes = {"ed25519": EDDSA_ED25519_SHA512,
+               "secp256k1": ECDSA_SECP256K1_SHA256,
+               "secp256r1": ECDSA_SECP256R1_SHA256}
+    kernels = {"ed25519": ed.verify_core_split,
+               "secp256k1": wc.verify_core_hybrid_wide,
+               "secp256r1": wc.verify_core_r1_split}
+    rng = random.Random(seed)
+    t0 = time.perf_counter()
+    network = MockNetwork(device=dev)
+    notary = network.create_notary_node()
+    parties = {name: network.create_node(
+        f"O=Party {name}, L=London, C=GB",
+        key_pair=generate_keypair(scheme, entropy=rng.randbytes(32)))
+        for name, scheme in schemes.items()}
+    network.start_nodes()
+    for node in parties.values():
+        node.services.verifier_service = TpuTransactionVerifierService(
+            batcher=SignatureBatcher(device=dev, host_crossover=0, **(
+                {} if interactive_s is None else
+                {"interactive_latency_s": interactive_s})))
+    wtxs = {}
+    for name, node in parties.items():
+        owners = tuple(parties[o].party.owning_key for o in parties
+                       if o != name)
+        wtxs[name] = []
+        for i in range(per_party + (name == "ed25519")):
+            builder = TransactionBuilder(notary=notary.party)
+            builder.add_output_state(DummyState(i, owners))
+            builder.add_command(DummyContract.Create(),
+                                node.party.owning_key)
+            wtxs[name].append(builder.to_wire_transaction())
+    jobs = [(node.key_pair.private.scheme.scheme_number_id,
+             node.key_pair.private.encoded, w.id.bytes)
+            for name, node in parties.items() for w in wtxs[name]]
+    with ProcessPoolExecutor(max_workers=min(8, os.cpu_count() or 1),
+                             mp_context=ctx) as pool:
+        sigs = iter(pool.map(_sign_job, jobs, chunksize=16))
+    stxs = {name: [SignedTransaction.of(w, [DigitalSignatureWithKey(
+        next(sigs), parties[name].party.owning_key)]) for w in wtxs[name]]
+        for name in parties}
+    good = stxs["ed25519"].pop()          # the extra issuance, tampered
+    bad_sig = good.sigs[0].__class__(
+        good.sigs[0].bytes[:-1] + bytes([good.sigs[0].bytes[-1] ^ 1]),
+        good.sigs[0].by)
+    bad = SignedTransaction(good.tx_bits, (bad_sig,))
+    setup_s = time.perf_counter() - t0
+
+    handlers = {name: [] for name in parties}
+    for name, node in parties.items():
+        node.smm.changes.append(
+            lambda ev, fsm, name=name: handlers[name].append(fsm)
+            if ev == "add" and isinstance(fsm.flow, NotifyTransactionHandler)
+            else None)
+    for k in kernels.values():
+        k.launches = 0
+    t0 = time.perf_counter()
+    fsms, bad_fsm = [], None
+    for i in range(per_party):
+        for name, node in parties.items():
+            fsms.append((stxs[name][i], node.start_flow(
+                FinalityFlow(stxs[name][i]))))
+        if i == min(FLOW_BAD_AT, per_party // 2):
+            bad_fsm = parties["ed25519"].start_flow(FinalityFlow(bad))
+    network.run_network(idle_timeout=FLOWS_IDLE_S)
+    wall = time.perf_counter() - t0
+    launches = {name: k.launches for name, k in kernels.items()}
+
+    for stx, fsm in fsms:
+        if fsm.result_future.result(timeout=0).id != stx.id:
+            raise SystemExit("flows: a FinalityFlow returned another "
+                             "transaction")
+    exc = bad_fsm.result_future.exception(timeout=0)
+    if type(exc).__name__ != "FlowException" or \
+            "could not be delivered" not in str(exc):
+        raise SystemExit(f"flows: the tampered transaction's FinalityFlow "
+                         f"ended with {exc!r}")
+    sig_path = "corda_tpu_torch.core.crypto.signatures:SignatureException"
+    failed = {}
+    for name, hs in handlers.items():
+        bad_hs = [h for h in hs if h.result_future.exception(timeout=0)]
+        for h in bad_hs:
+            err = h.result_future.exception(timeout=0)
+            kind, payload = h.response_log[-1]
+            if (type(err).__name__ != "SignatureException"
+                    or kind != "error" or payload[0] != sig_path
+                    or h.flow.service_hub.storage.get_transaction(bad.id)):
+                raise SystemExit(f"flows: {name}'s handler failed with "
+                                 f"{err!r}, last logged {kind} {payload}")
+        want = 0 if name == "ed25519" else 1
+        if len(bad_hs) != want or len(hs) != 2 * per_party + want:
+            raise SystemExit(f"flows: {name} ran {len(hs)} handlers, "
+                             f"{len(bad_hs)} failed")
+        failed[name] = len(bad_hs)
+
+    all_ids = {stx.id for name in parties for stx in stxs[name]}
+    vault_states = {}
+    for name, node in parties.items():
+        held = {stx.id for stx in node.services.storage.transactions}
+        want = all_ids | ({bad.id} if name == "ed25519" else set())
+        if held != want:
+            raise SystemExit(f"flows: {name}'s storage holds {len(held)} "
+                             f"transactions, {len(want & held)} expected")
+        theirs = {stx.id for other in parties if other != name
+                  for stx in stxs[other]}
+        states = {sar.ref.txhash for sar in
+                  node.services.vault.unconsumed_states(DummyState)}
+        if states != theirs:
+            raise SystemExit(f"flows: {name}'s vault holds {len(states)} "
+                             f"states, {len(theirs)} expected")
+        vault_states[name] = len(states)
+    receivers = {}
+    for name, node in parties.items():
+        svc = node.services.verifier_service
+        snap = svc.batcher.metrics.snapshot()
+        received = 2 * per_party + failed[name]
+        require_clean(snap, svc.batcher.breaker_status(), received,
+                      f"flows ({name}'s batcher)")
+        if count(snap, "SigBatcher.HostRouted") != 0:
+            raise SystemExit(f"flows: {name}'s batcher routed to the host")
+        receivers[name] = {
+            "device_checked": count(snap, "SigBatcher.DeviceChecked"),
+            "device_batches": count(snap, "SigBatcher.DeviceBatches")}
+        svc.shutdown()
+    for name, n in launches.items():
+        log(f"flows: {name} {n} launches for {per_party} transactions, each "
+            f"verified by its two receivers (interactive deadline "
+            f"{interactive_s or 'default'})")
+        if n == 0 or (coalesce and n >= per_party):
+            raise SystemExit(f"flows: {name} launched {n} times for "
+                             f"{per_party} transactions: the flows' "
+                             "signatures did not coalesce")
+    n_flows = len(fsms) + 1
+    return {"flows": n_flows, "interactive_latency_s": interactive_s,
+            "setup_s": setup_s, "wall_s": wall,
+            "flows_per_s": n_flows / wall,
+            "launches": {name: {"transactions": per_party,
+                                "verifications": 2 * per_party,
+                                "launches": n}
+                         for name, n in launches.items()},
+            "receivers": receivers,
+            "receivers_failed_on_tampered": failed,
+            "vault_states": vault_states,
+            "storage_transactions": len(all_ids)}, launches
+
+
+def oracle_run(card, dev, seed: int) -> tuple[dict, int]:
+    """Phase 7d, part 2: ORACLE_FIXES fixes queried and signed over the bus,
+    then RatesOracle.sign_batch on the oracle node's device (``dev``) over
+    the Merkle phase's tear-offs, in turns with the host route. Returns
+    (results, hash_pairs launches of the sign_batch run)."""
+    import torch
+    from corda_tpu_torch.core import contracts
+    from corda_tpu_torch.core.crypto import SecureHash
+    from corda_tpu_torch.core.transactions import (FilteredTransaction,
+                                                   WireTransaction)
+    from corda_tpu_torch.core.transactions import batch_merkle as bm
+    from corda_tpu_torch.ops import sha256 as sha
+    from corda_tpu_torch.samples import rates_oracle as ro
+    from corda_tpu_torch.testing import DummyContract, DummyState, MockNetwork
+    network = MockNetwork(device=dev)
+    notary = network.create_notary_node()
+    oracle_node = network.create_node("O=Rates Oracle, L=London, C=GB")
+    client = network.create_node("O=Rates Client, L=Madrid, C=ES")
+    network.start_nodes()
+    queried = {ro.FixOf("ICE LIBOR", f"2016-04-{d + 1:02d}", "6M"): 300 + d
+               for d in range(ORACLE_FIXES)}
+    bulk_of = ro.FixOf("ICE LIBOR", "2016-03-16", "3M")
+    oracle = ro.RatesOracle(oracle_node.services,
+                            {**queried, bulk_of: 400 + ORACLE_AGREED})
+    oracle.install(oracle_node.smm)
+    me, rates = client.party.owning_key, oracle_node.party.owning_key
+
+    def reveals_fix(c):
+        return (isinstance(c, contracts.Command)
+                and isinstance(c.value, ro.Fix))
+    t0 = time.perf_counter()
+    qs = [client.start_flow(ro.RatesFixQueryFlow(oracle_node.party, f))
+          for f in queried]
+    network.run_network()
+    fixes = [q.result_future.result(timeout=0) for q in qs]
+    if [(f.of, f.value_bp) for f in fixes] != list(queried.items()):
+        raise SystemExit("flows: the oracle answered other fixes")
+    ftxs = [WireTransaction(
+        outputs=(contracts.TransactionState(DummyState(k, (me,)),
+                                            notary.party),),
+        commands=(contracts.Command(DummyContract.Create(), (me,)),
+                  contracts.Command(fix, (rates,))),
+        notary=notary.party, must_sign=(me, rates)
+    ).build_filtered_transaction(reveals_fix) for k, fix in enumerate(fixes)]
+    signs = [client.start_flow(ro.RatesFixSignFlow(oracle_node.party, f))
+             for f in ftxs]
+    network.run_network()
+    for f, fsm in zip(ftxs, signs):
+        sig = fsm.result_future.result(timeout=0)
+        if sig.by != rates or not sig.is_valid(f.root_hash.bytes):
+            raise SystemExit("flows: a fix was signed by another key")
+    fixes_s = time.perf_counter() - t0
+
+    env = {"contracts": contracts, "oracle": ro,
+           "WireTransaction": WireTransaction, "DummyState": DummyState,
+           "DummyContract": DummyContract, "alice": me, "rates": rates,
+           "notary": notary.party}
+    t0 = time.perf_counter()
+    base = [_oracle_wtx(env, i).build_filtered_transaction(reveals_fix)
+            for i in range(MERKLE_DISTINCT)]
+    ftxs, want = [], []
+    for j in range(MERKLE_DISTINCT * PROOF_TILE):
+        i = j % MERKLE_DISTINCT
+        ftx = base[i]
+        if j % 16 == 5:
+            other = base[(i + 1) % MERKLE_DISTINCT]
+            ftx = (FilteredTransaction(SecureHash.sha256(b"wrong %d" % j),
+                                       ftx.filtered_leaves,
+                                       ftx.partial_merkle_tree)
+                   if (j // 16) % 2 == 0 else
+                   FilteredTransaction(ftx.root_hash, other.filtered_leaves,
+                                       ftx.partial_merkle_tree))
+            want.append("Tear-off failed Merkle verification")
+        elif i == ORACLE_AGREED:
+            want.append(None)
+        else:
+            want.append("Oracle refuses: revealed components are not "
+                        "exactly agreeable Fix commands")
+        ftxs.append(ftx)
+    dataset_s = time.perf_counter() - t0
+
+    sha.hash_pairs.launches = 0
+    t0 = time.perf_counter()
+    got = oracle.sign_batch(ftxs)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    launches = sha.hash_pairs.launches
+    t0 = time.perf_counter()
+    host = bm.verify_filtered_batch(ftxs, use_device=False)
+    host_s = time.perf_counter() - t0
+    signed = 0
+    for j, (res, w, ok) in enumerate(zip(got, want, host)):
+        if ok != (j % 16 != 5):
+            raise SystemExit(f"flows: the host route's verdict on tear-off "
+                             f"{j} is {ok}")
+        if w is None:
+            if (type(res).__name__ != "DigitalSignatureWithKey"
+                    or res.by != rates
+                    or not res.is_valid(ftxs[j].root_hash.bytes)):
+                raise SystemExit(f"flows: sign_batch item {j}: {res!r}")
+            signed += 1
+        elif type(res).__name__ != "FlowException" or str(res) != w:
+            raise SystemExit(f"flows: sign_batch item {j}: {res!r}, "
+                             f"expected {w!r}")
+    if launches == 0:
+        raise SystemExit("flows: sign_batch launched hash_pairs no time")
+    return {"fixes": ORACLE_FIXES, "fixes_s": fixes_s,
+            "tear_offs": len(ftxs), "dataset_s": dataset_s,
+            "signed": signed, "refused": len(ftxs) - signed,
+            "sign_batch_s": card_s, "host_route_s": host_s,
+            "sign_batch_per_s": len(ftxs) / card_s,
+            "host_route_proofs_per_s": len(ftxs) / host_s,
+            "hash_pairs_launches": launches}, launches
+
+
+def simm_flow_run(card, dev, seed: int) -> tuple[dict, int]:
+    """Phase 7d, part 3: SimmRevaluationFlow between two nodes on ``dev``
+    on the demo book and a SIMM_FLOW_TRADES-trade book. Returns (results,
+    simm_margin launches of the flows)."""
+    from corda_tpu_torch.samples import simm_valuation as simm
+    from corda_tpu_torch.testing import MockNetwork
+    network = MockNetwork(device=dev)
+    a = network.create_node("O=Dealer A, L=London, C=GB")
+    b = network.create_node("O=Dealer B, L=New York, C=US")
+    network.start_nodes()
+    out, total = {}, 0
+    for n in (16, SIMM_FLOW_TRADES):
+        book = simm_book(simm, n, seed + n)
+        simm.margin.launches = 0
+        t0 = time.perf_counter()
+        fsm = a.start_flow(simm.SimmRevaluationFlow(b.party, book))
+        network.run_network()
+        res = fsm.result_future.result(timeout=0)
+        wall = time.perf_counter() - t0
+        launches = simm.margin.launches
+        if launches != 2:
+            raise SystemExit(f"flows: SIMM at {n} trades launched "
+                             f"simm_margin {launches} times, not once a side")
+        total += launches
+        wire = simm.dequantize(simm.quantize(book))
+        want = simm.compute_margin_cents(wire, device=dev)
+        exact = 100 * exact_margin(simm, wire)
+        if not res["margin_cents"] == res["counterparty_margin"] == want:
+            raise SystemExit(f"flows: SIMM at {n} trades agreed "
+                             f"{res['margin_cents']} / "
+                             f"{res['counterparty_margin']}, the card "
+                             f"computes {want}")
+        if abs(want - exact) > (2.0 if n <= 1024 else 1e-5 * exact):
+            raise SystemExit(f"flows: SIMM at {n} trades: {want} cents "
+                             f"against the float64 {exact}")
+        out[str(n)] = {"cents": want, "float64_cents": exact,
+                       "flow_wall_s": wall, "launches": launches}
+    return out, total
+
+
+def flows_phase(card, dev, seed: int, ctx) -> tuple[dict, dict]:
+    """Phase 7d: finality, the rates oracle and SIMM through the flow
+    framework on ``dev``. Returns (results, launches by kernel)."""
+    t0 = time.perf_counter()
+    probe, _ = finality_run(card, dev, seed + 3, ctx, FLOW_PROBE, None,
+                            coalesce=False)
+    tp = time.perf_counter()
+    finality, sig_launches = finality_run(card, dev, seed, ctx,
+                                          FLOWS_PER_PARTY,
+                                          FLOW_INTERACTIVE_S, coalesce=True)
+    t1 = time.perf_counter()
+    oracle, b6 = oracle_run(card, dev, seed + 1)
+    t2 = time.perf_counter()
+    simm_out, b10 = simm_flow_run(card, dev, seed + 2)
+    t3 = time.perf_counter()
+    return {"card": card, "default_deadline_probe": probe,
+            "finality": finality, "oracle": oracle, "simm": simm_out,
+            "seconds": {"probe": tp - t0, "finality": t1 - tp,
+                        "oracle": t2 - t1,
+                        "simm": t3 - t2, "phase": t3 - t0}}, {
+        "ed25519_split_verify": sig_launches["ed25519"],
+        "secp256k1_hybrid_verify": sig_launches["secp256k1"],
+        "secp256r1_split_verify": sig_launches["secp256r1"],
+        "sha256_hash_pairs": b6, "simm_margin": b10}
+
+
+# ---------------------------------------------------------------------------
 # B7 (Ed25519 Shamir and windowed ladders) and B10 (SIMM margin)
 # ---------------------------------------------------------------------------
 
@@ -2991,6 +3399,12 @@ def main() -> int:
                             oop["oop_mixed_kernel_launches"])
     log(json.dumps({"path": "fleet", **fleet_out}))
     t_phase = log_phase("fleet", t_phase)
+
+    # -- phase 7d: the flow framework ----------------------------------------
+    flows_out, flow_launches = flows_phase(card, dev, args.seed + 61, ctx)
+    log(json.dumps({"path": "flows", **flows_out,
+                    "kernel_launches": flow_launches}))
+    t_phase = log_phase("flows", t_phase)
 
     # -- phase 8: an earlier commit's B3, B5, B7 and B8 ----------------------
     if args.ab is not None:

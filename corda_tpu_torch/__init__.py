@@ -9,9 +9,13 @@ its signature-verification service path for one H100:
   ``_build`` into ``_build/``)
 - ``corda_tpu_torch.verifier``   — SignatureBatcher and the verifier services
 - ``corda_tpu_torch.parallel``   — meshes of devices and sharded verification
-- ``corda_tpu_torch.samples``    — the rates oracle's types, the SIMM margin
+- ``corda_tpu_torch.flows`` / ``node`` / ``storage`` — the flow framework,
+  the node's services, state machine and notary, and the key-value store
+- ``corda_tpu_torch.network``    — the messaging SPI and the in-memory bus
+- ``corda_tpu_torch.testing``    — MockNetwork, mock services and fixtures
+- ``corda_tpu_torch.samples``    — the rates oracle and the SIMM valuation
 - ``corda_tpu_torch.observability`` / ``utils`` — tracer, flight recorder,
-  metrics and the fault-injection seam
+  resource accounting, metrics and the fault-injection seam
 
 It imports neither ``jax`` nor anything of ``corda_tpu``. Entry points take a
 ``device`` (default ``"cuda"``); pass ``device="cpu"`` to run the plain

@@ -1,8 +1,10 @@
 """Builds the port's native libraries from the repository's sources.
 
-Eleven shared libraries, all with a plain C interface loaded through ctypes:
+Twelve shared libraries, all with a plain C interface loaded through ctypes:
 
-- ``scalarmath``       — ``native/scalarmath.cpp`` (host scalar prep), by g++;
+- ``scalarmath``       — ``native/scalarmath.cpp`` (host scalar prep) and
+- ``kvlog``            — ``native/kvlog.cpp`` (the key-value store's
+  append-only log engine, ``storage/kvstore.py``), each by g++;
 - ``ed25519_split``    — ``csrc/ed25519_split.cu`` (kernel B2, Ed25519
   split-k verify),
 - ``secp256k1_hybrid`` — ``csrc/secp256k1_hybrid.cu`` (kernel B3, secp256k1
@@ -117,14 +119,16 @@ def _nvcc_target(source: str) -> dict:
             "flags": _NVCC_FLAGS, "compiler": nvcc_path}
 
 
+def _host_target(source: str) -> dict:
+    sources = [os.path.join(_REPO, "native", source)]
+    return {"sources": sources, "deps": include_closure(sources),
+            "flags": ["-O2", "-fPIC", "-std=c++17", "-shared"],
+            "compiler": _cxx}
+
+
 _TARGETS = {
-    "scalarmath": {
-        "sources": [os.path.join(_REPO, "native", "scalarmath.cpp")],
-        "deps": include_closure([os.path.join(_REPO, "native",
-                                              "scalarmath.cpp")]),
-        "flags": ["-O2", "-fPIC", "-std=c++17", "-shared"],
-        "compiler": _cxx,
-    },
+    "scalarmath": _host_target("scalarmath.cpp"),
+    "kvlog": _host_target("kvlog.cpp"),
     **{name: _nvcc_target(f"{name}.cu") for name in (
         "ed25519_split", "ed25519_shamir", "ed25519_windowed",
         "secp256k1_hybrid", "secp256r1_split", "weierstrass_shamir",
@@ -216,6 +220,13 @@ def load(name: str) -> ctypes.CDLL:
         if name not in _LIBS:
             _LIBS[name] = ctypes.CDLL(path)
         return _LIBS[name]
+
+
+def can_build(name: str) -> bool:
+    """True when ``name``'s library is loaded or built, or its compiler is
+    there to build it. Builds nothing."""
+    return (name in _LIBS or os.path.exists(_output_path(name))
+            or _TARGETS[name]["compiler"]() is not None)
 
 
 def build_count(name: str) -> int:

@@ -1,11 +1,11 @@
-"""The ledger algebra: states, commands, transaction-verification rules.
+"""The ledger algebra: states, commands, amounts, transaction-verification rules.
 
-Own copies of corda_tpu.core.contracts' modules of the same names, with the
-same registered wire names and field orders (``Amount`` and the currency
-helpers of ``amount.py``, the clause library, the attachment contract and
-the contract sandbox are not ported yet).
+Own copies of the reference package's contracts modules of the same names
+(``amount.py`` with ``Amount`` and the currency helpers among them), with
+the same registered wire names and field orders. The clause library, the
+attachment contract and the contract sandbox are not ported yet.
 
-Reference parity: core/.../contracts/ (Structures.kt,
+Reference parity: core/.../contracts/ (Structures.kt, Amount.kt,
 TransactionVerification.kt, TransactionTypes.kt).
 """
 from .structures import (
@@ -15,6 +15,7 @@ from .structures import (
     ExitCommand, TimeWindow, PartyAndReference, Issued, UniqueIdentifier, Attachment,
     requireThat,
 )
+from .amount import Amount, Currency, USD, GBP, EUR, CHF
 from .exceptions import (
     TransactionVerificationException, TransactionResolutionException,
     AttachmentResolutionException, ContractRejection, MoreThanOneNotary,
@@ -29,6 +30,7 @@ __all__ = [
     "StateAndRef", "Command", "AuthenticatedObject", "CommandData",
     "TypeOnlyCommandData", "MoveCommand", "IssueCommand", "ExitCommand", "TimeWindow",
     "PartyAndReference", "Issued", "UniqueIdentifier", "Attachment", "requireThat",
+    "Amount", "Currency", "USD", "GBP", "EUR", "CHF",
     "TransactionVerificationException", "TransactionResolutionException",
     "AttachmentResolutionException", "ContractRejection", "MoreThanOneNotary",
     "SignersMissing", "DuplicateInputStates", "InvalidNotaryChange",

@@ -1,2 +1,3 @@
 """Sample applications (own copies of corda_tpu.samples' modules: the rates
-oracle's data classes and the SIMM margin so far)."""
+oracle's service and flows, and the SIMM valuation with its flows, so
+far)."""

@@ -16,9 +16,14 @@ order of the reference's program compiled for the CPU, so the two margins
 agree bit for bit); for CUDA tensors it launches the hand-written kernel
 ``csrc/simm_margin.cu``, which rounds in the same order (built at first
 use), or raises — it never falls back. ``margin.launches``
-counts the launches. The reference's flows (``SimmRevaluationFlow``, its
-handler and ``main``) need the flow framework, which the port does not have
-yet.
+counts the launches.
+
+The two-party agreement (``SimmRevaluationFlow``, its handler and ``main``)
+is the reference's: the proposer computes the margin, the counterparty
+recomputes it independently and signs the figure when the two agree within
+the tolerance. In the port each side computes on its own node's device
+(``service_hub.device``), so a flow between two card nodes launches B10
+twice, once on each side.
 """
 from __future__ import annotations
 
@@ -31,6 +36,8 @@ import torch
 
 from .. import _build
 from ..device import resolve_device
+from ..flows.api import (FlowException, FlowLogic, Receive, Send,
+                         initiated_by, initiating_flow)
 from ..ops import _cuda as cu
 from ..ops import field as F
 
@@ -210,3 +217,80 @@ def compute_margin_cents(sensitivities, device="cuda") -> int:
     rw, corr = model_tensors(dev)
     out = margin(sens.to(dev), rw, corr)
     return int(round(float(out) * 100))
+
+
+# ---------------------------------------------------------------------------
+# The two-party agreement (flows/SimmRevaluation.kt)
+# ---------------------------------------------------------------------------
+
+@initiating_flow
+class SimmRevaluationFlow(FlowLogic):
+    """Initiator: compute the margin for the shared portfolio on this node's
+    device, propose it, collect the counterparty's signed agreement
+    (flows/SimmRevaluation.kt role)."""
+
+    def __init__(self, peer, sensitivities: np.ndarray):
+        self.peer = peer
+        self.sensitivities = np.asarray(sensitivities, dtype=np.float32)
+
+    def call(self):
+        wire = quantize(self.sensitivities)
+        device = self.service_hub.device
+        margin = yield from self.record(
+            lambda: compute_margin_cents(dequantize(wire), device=device))
+        payload = [wire.tolist(), margin]
+        yield Send(self.peer, payload)
+        resp = yield Receive(self.peer, list)
+        agreed, their_margin, sig = resp.unwrap(lambda d: d)
+        if not agreed:
+            raise FlowException(
+                f"Counterparty disagrees: ours {margin} theirs {their_margin}")
+        # their signature over the agreed figure (the stored agreement)
+        content = f"simm-agreement:{margin}".encode()
+        from ..core.crypto.signatures import DigitalSignatureWithKey
+        DigitalSignatureWithKey(sig, self.peer.owning_key).verify(content)
+        return {"margin_cents": margin, "counterparty_margin": their_margin,
+                "signature": sig}
+
+
+@initiated_by(SimmRevaluationFlow)
+class SimmRevaluationHandler(FlowLogic):
+    """Counterparty: recompute independently on its own device; sign the
+    proposer's figure only when within tolerance."""
+
+    def __init__(self, peer):
+        self.peer = peer
+
+    def call(self):
+        req = yield Receive(self.peer, list)
+        sens_rows, proposed = req.unwrap(lambda d: d)
+        sens = dequantize(sens_rows)
+        device = self.service_hub.device
+        ours = yield from self.record(
+            lambda: compute_margin_cents(sens, device=device))
+        if abs(ours - proposed) > AGREEMENT_TOLERANCE_CENTS:
+            yield Send(self.peer, [False, ours, b""])
+            return {"agreed": False, "margin_cents": ours}
+        sig = self.service_hub.sign(f"simm-agreement:{proposed}".encode())
+        yield Send(self.peer, [True, ours, sig.bytes])
+        return {"agreed": True, "margin_cents": ours}
+
+
+def main() -> None:
+    from ..testing import MockNetwork
+
+    network = MockNetwork()
+    a = network.create_node("O=Dealer A, L=London, C=GB")
+    b = network.create_node("O=Dealer B, L=New York, C=US")
+    network.start_nodes()
+    book = demo_portfolio()
+    fsm = a.start_flow(SimmRevaluationFlow(b.party, book))
+    network.run_network()
+    out = fsm.result_future.result(timeout=10)
+    print(f"portfolio of {len(book)} trades: agreed initial margin "
+          f"${out['margin_cents'] / 100:,.2f} "
+          f"(counterparty computed ${out['counterparty_margin'] / 100:,.2f})")
+
+
+if __name__ == "__main__":
+    main()

@@ -5,6 +5,7 @@ unasked)."""
 import ast
 import json
 import pathlib
+import re
 import subprocess
 import sys
 
@@ -21,6 +22,26 @@ def _modules():
         if parts[-1] == "__init__":
             parts = parts[:-1]
         yield path, ".".join(parts)
+
+
+#: The packages of the flow framework slice, and a module of each, that the
+#: scans below must reach.
+SLICE_MODULES = ("corda_tpu_torch.flows", "corda_tpu_torch.flows.api",
+                 "corda_tpu_torch.flows.library",
+                 "corda_tpu_torch.flows.confidential",
+                 "corda_tpu_torch.node", "corda_tpu_torch.node.statemachine",
+                 "corda_tpu_torch.node.services",
+                 "corda_tpu_torch.node.notary", "corda_tpu_torch.storage",
+                 "corda_tpu_torch.storage.kvstore",
+                 "corda_tpu_torch.testing.mocknetwork",
+                 "corda_tpu_torch.observability.resprof",
+                 "corda_tpu_torch.core.contracts.amount",
+                 "corda_tpu_torch.core.transactions.builder")
+
+
+def test_the_scans_reach_the_flow_framework_packages():
+    names = {name for _, name in _modules()}
+    assert set(SLICE_MODULES) <= names
 
 
 def test_importing_every_module_loads_no_jax_or_corda_tpu():
@@ -56,6 +77,71 @@ def test_no_import_statement_names_jax_or_corda_tpu():
     assert offenders == []
 
 
+#: A reference package module named in a string: "corda_tpu." or
+#: "corda_tpu:" followed by a name (a module path, or a "module:QualName"
+#: error payload) or by the end of the literal (an f-string's part before
+#: a formatted name). "corda_tpu_torch." does not match.
+_REF_MODULE = re.compile(r"\bcorda_tpu[.:](?=[A-Za-z_]|$)")
+
+
+def _docstrings(tree) -> set:
+    out = set()
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef,
+                             ast.AsyncFunctionDef)) and node.body:
+            first = node.body[0]
+            if isinstance(first, ast.Expr) and isinstance(
+                    first.value, ast.Constant) and isinstance(
+                    first.value.value, str):
+                out.add(id(first.value))
+    return out
+
+
+def strings_naming_the_reference(source: str) -> list:
+    """(line, text) of every str literal of ``source`` other than a
+    docstring — f-strings' literal parts included — that names a module of
+    the reference package. Docstrings are prose: they may say what a
+    module copies."""
+    tree = ast.parse(source)
+    docs = _docstrings(tree)
+    return [(node.lineno, node.value) for node in ast.walk(tree)
+            if isinstance(node, ast.Constant) and isinstance(node.value, str)
+            and id(node) not in docs and _REF_MODULE.search(node.value)]
+
+
+def test_no_string_literal_names_a_corda_tpu_module():
+    """Flow names, checkpoint restores and error payloads import modules by
+    the names in strings (``flow_name``, ``_import_flow_class``,
+    ``_ERROR_MODULES``): a copied string naming the reference package would
+    import it at run time, which the import scans above cannot see."""
+    offenders = []
+    for path, _ in _modules():
+        for line, text in strings_naming_the_reference(path.read_text()):
+            offenders.append(f"{path.relative_to(PKG.parent)}:{line} {text!r}")
+    assert offenders == []
+
+
+def test_the_string_scan_finds_planted_names():
+    planted = (
+        '"""Copies corda_tpu.flows.api (a docstring: allowed)."""\n'
+        'MODS = ("corda_tpu.flows.api", "corda_tpu_torch.node.notary")\n'
+        'def f(x):\n'
+        '    """A docstring naming corda_tpu.node."""\n'
+        '    return f"corda_tpu.{x}", "corda_tpu:Error", b"corda_tpu.bytes"\n')
+    assert [line for line, _ in strings_naming_the_reference(planted)] == [
+        2, 5, 5]
+
+
+def test_error_modules_are_the_ports_own():
+    import importlib
+    from corda_tpu_torch.node import statemachine
+    for name in statemachine._ERROR_MODULES:
+        assert name.startswith("corda_tpu_torch.")
+        importlib.import_module(name)
+    assert "corda_tpu_torch.flows.api:FlowTimeoutException" in \
+        statemachine._error_registry()
+
+
 def test_default_device_raises_without_cuda():
     from corda_tpu_torch.device import resolve_device
     from corda_tpu_torch.ops import ed25519
@@ -85,3 +171,8 @@ def test_default_device_raises_without_cuda():
     worker = VerifierWorker(bus.create_node("w_cpu"), "node", device="cpu")
     assert worker.device == torch.device("cpu")
     worker.stop()
+    from corda_tpu_torch.testing import MockNetwork
+    with pytest.raises(RuntimeError, match="cuda"):
+        MockNetwork()
+    assert MockNetwork(device="cpu").create_node().services.device == \
+        torch.device("cpu")

@@ -1,8 +1,9 @@
 """The port's out-of-process verifier (the OutOfProcess verifier type)
 against the JAX package's: the same messages byte for byte, and the same
 scenarios on both packages' in-memory buses — the cases of
-tests/test_oop_verifier.py that need no MockServices and every case of
-tests/test_chaos_oop.py — with equal futures' outcomes, per-worker
+tests/test_oop_verifier.py (those that resolve transactions against each
+package's own MockServices) and every case of tests/test_chaos_oop.py —
+with equal futures' outcomes, per-worker
 ``verified_count``, ``Verification.*`` counts, ``fleet_status()`` fields
 and request-log events.
 
@@ -29,6 +30,7 @@ from corda_tpu.network.inmemory import InMemoryMessagingNetwork as JBus
 from corda_tpu.observability import tracing as j_tracing
 from corda_tpu.testing import DummyContract, DummyState
 from corda_tpu.testing import faults as j_faults
+from corda_tpu.testing.services import MockServices as JMockServices
 from corda_tpu.utils import retry as j_retry
 from corda_tpu.verifier import out_of_process as j_oop
 from corda_tpu.verifier.batcher import SignatureBatcher as JBatcher
@@ -40,6 +42,7 @@ from corda_tpu_torch.network.inmemory import \
     InMemoryMessagingNetwork as TBus
 from corda_tpu_torch.observability import tracing as t_tracing
 from corda_tpu_torch.testing import faults as t_faults
+from corda_tpu_torch.testing.services import MockServices as TMockServices
 from corda_tpu_torch.utils import retry as t_retry
 from corda_tpu_torch.verifier import make_verifier_service
 from corda_tpu_torch.verifier import out_of_process as t_oop
@@ -69,12 +72,13 @@ def _port_worker(node, queue, **kw):
 JAX = types.SimpleNamespace(
     name="jax", Bus=JBus, oop=j_oop, Worker=j_oop.VerifierWorker,
     faults=j_faults, retry=j_retry, tracing=j_tracing, TVE=JTVE,
-    convert=lambda obj: obj,
+    convert=lambda obj: obj, MockServices=JMockServices,
     host_batcher=lambda: JBatcher(use_device=False))
 PORT = types.SimpleNamespace(
     name="port", Bus=TBus, oop=t_oop, Worker=_port_worker,
     faults=t_faults, retry=t_retry, tracing=t_tracing, TVE=TTVE,
     convert=lambda obj: t_deserialize(j_serialize(obj)),
+    MockServices=TMockServices,
     host_batcher=lambda: TBatcher(use_device=False, device="cpu"))
 
 
@@ -584,21 +588,6 @@ def test_make_verifier_service_builds_the_port_service():
     svc.shutdown()
 
 
-class DictServices:
-    """The services a SignedTransaction resolves against: states and
-    attachments in dicts (duck-typed, for either package)."""
-
-    def __init__(self):
-        self.states, self.blobs = {}, {}
-        self.attachments = self
-
-    def load_state(self, ref):
-        return self.states.get(ref)
-
-    def open_attachment(self, att_id):
-        return self.blobs.get(att_id)
-
-
 def _signed_transactions():
     """Issuances signed by one Ed25519 or secp256k1 key each (the JAX
     package's signing); one of each scheme with a signature over other
@@ -619,15 +608,20 @@ def _signed_transactions():
     return out
 
 
-def _device_path(pkg, batcher):
+def _device_path(pkg, batcher, stxs=None, recorded=()):
+    """``stxs`` (default ``_signed_transactions()``) through one worker
+    with ``batcher``, resolved against ``pkg``'s MockServices holding the
+    ``recorded`` transactions."""
     bus = pkg.Bus()
     svc = pkg.oop.OutOfProcessTransactionVerifierService(
         bus.create_node("node"))
     worker = pkg.Worker(bus.create_node("w1"), "node", batcher=batcher)
     bus.run_network()
-    services = DictServices()
+    services = pkg.MockServices()
+    for stx in recorded:
+        services.record_transactions(pkg.convert(stx))
     futures = [svc.verify_signed(pkg.convert(stx), services)
-               for stx in _signed_transactions()]
+               for stx in (_signed_transactions() if stxs is None else stxs)]
     _pump_until(bus, futures)
     worker.stop()
     return _record(svc, futures, {"w1": worker})
@@ -649,3 +643,41 @@ def test_device_path_on_the_cpu_matches_the_reference_host_route():
     snap = batcher.metrics.snapshot()
     assert snap["SigBatcher.DeviceChecked"]["count"] == 5
     assert snap.get("SigBatcher.HostRouted", {}).get("count", 0) == 0
+
+
+def test_device_path_through_worker():
+    """tests/test_oop_verifier.py::test_device_path_through_worker: a
+    generated ledger of 12 transactions (Ed25519 and secp256k1 parties,
+    moves resolving their inputs through MockServices) through a worker
+    whose batcher checks every signature on the device route (the port's:
+    the plain kernels on the CPU), with the reference's outcomes."""
+    from corda_tpu.testing.generated_ledger import make_generated_ledger
+    ledger = make_generated_ledger(12, seed=7).transactions
+    want = _device_path(JAX, JBatcher(use_device=False), ledger, ledger)
+    batcher = TBatcher(device="cpu", host_crossover=0, max_latency_s=0.05)
+    got = _device_path(PORT, batcher, ledger, ledger)
+    assert got == want
+    assert got["outcomes"] == [("ok", None)] * len(ledger)
+    snap = batcher.metrics.snapshot()
+    assert snap["SigBatcher.DeviceBatches"]["count"] > 0
+    assert snap["SigBatcher.DeviceChecked"]["count"] >= len(ledger)
+
+
+def test_device_path_rejects_bad_signature():
+    """tests/test_oop_verifier.py::test_device_path_rejects_bad_signature:
+    a signature over other content fails through the worker's device path
+    with the reference's error."""
+    wtx = WireTransaction(
+        outputs=(TransactionState(DummyState(1, (ALICE_KP.public,)),
+                                  NOTARY),),
+        commands=(Command(DummyContract.Create(), (ALICE_KP.public,)),),
+        notary=NOTARY, must_sign=(ALICE_KP.public,))
+    stx = SignedTransaction.of(
+        wtx, [Crypto.sign_with_key(ALICE_KP, b"some other content")])
+    want = _device_path(JAX, JBatcher(use_device=False), [stx])
+    got = _device_path(PORT, TBatcher(device="cpu", host_crossover=0,
+                                      max_latency_s=0.01), [stx])
+    assert got == want
+    kind, msg = got["outcomes"][0]
+    assert kind == "TransactionVerificationException"
+    assert "did not verify" in msg

@@ -154,3 +154,63 @@ def test_margin_wrapper_never_falls_back_off_the_cpu():
         with pytest.raises(RuntimeError, match="cuda"):
             tsimm.compute_margin_cents(tsimm.demo_portfolio())
     assert tsimm.margin.launches == 0 or torch.cuda.is_available()
+
+
+# -- the two-party agreement (tests/test_simm.py's flow cases) ---------------
+
+def _agreement(pkg, book):
+    from test_torch_flow_framework import mock_network, outcome
+    simm = jsimm if pkg == "corda_tpu" else tsimm
+    network = mock_network(pkg)
+    a = network.create_node("O=Dealer A, L=London, C=GB")
+    b = network.create_node("O=Dealer B, L=New York, C=US")
+    network.start_nodes()
+    fsm = a.start_flow(simm.SimmRevaluationFlow(b.party, book))
+    network.run_network()
+    return outcome(fsm.result_future, 10)
+
+
+@pytest.mark.parametrize("n,seed", [(16, 7), (1024, 5)])
+def test_two_party_agreement_matches_reference(n, seed):
+    """The same book through SimmRevaluationFlow on both packages: the same
+    agreed cents on both sides and the same counterparty signature."""
+    book = tsimm.demo_portfolio(n, seed)
+    want = _agreement("corda_tpu", book)
+    got = _agreement("corda_tpu_torch", book)
+    assert got[0] == want[0] == "ok"
+    assert got[1] == want[1]
+    wire = tsimm.dequantize(tsimm.quantize(book))    # what both sides see
+    assert got[1]["margin_cents"] == got[1]["counterparty_margin"] == \
+        tsimm.compute_margin_cents(wire, device="cpu")
+
+
+def test_disagreement_refused(monkeypatch):
+    """tests/test_simm.py::test_disagreement_refused on both packages: the
+    tolerance forced negative, the initiator fails with the disagreement."""
+    monkeypatch.setattr(jsimm, "AGREEMENT_TOLERANCE_CENTS", -1)
+    monkeypatch.setattr(tsimm, "AGREEMENT_TOLERANCE_CENTS", -1)
+    book = tsimm.demo_portfolio()
+    want = _agreement("corda_tpu", book)
+    got = _agreement("corda_tpu_torch", book)
+    assert got == want
+    assert got[0] == "FlowException" and "disagrees" in got[1]
+
+
+def test_each_side_computes_on_its_nodes_device(monkeypatch):
+    """Both flows compute on their own node's device (``hub.device``): the
+    CPU network's two margins both run the plain version, once a side; a
+    network left at the default device needs CUDA."""
+    calls = []
+    real = tsimm.compute_margin_cents
+
+    def spy(sens, device="cuda"):
+        calls.append(str(device))
+        return real(sens, device=device)
+
+    monkeypatch.setattr(tsimm, "compute_margin_cents", spy)
+    assert _agreement("corda_tpu_torch", tsimm.demo_portfolio())[0] == "ok"
+    assert calls == ["cpu", "cpu"]
+    if not torch.cuda.is_available():
+        from corda_tpu_torch.testing import MockNetwork
+        with pytest.raises(RuntimeError, match="cuda"):
+            MockNetwork()

@@ -6,8 +6,10 @@ Ed25519 and ECDSA (secp256k1, secp256r1) —, every ECDSA verify mode of
 ``verify_batch``, the Merkle hashing path (bulk tear-off proof checks and
 bulk transaction ids), the sharded path over meshes of one card, the
 SIMM margin, the out-of-process verifier (workers on the card behind an
-in-memory bus), the in-process verifier fleet under its controller, and
-the flow framework: flows on a MockNetwork verifying through the card.
+in-memory bus), the in-process verifier fleet under its controller, the
+flow framework: flows on a MockNetwork verifying through the card, and
+the finance CorDapp: a delivery-versus-payment trade whose cash history
+the seller and a validating notary resolve on the card.
 
     python3 chip_smoke.py [--seed N] [--only-kernels NAMES] [--ab PARENT]
 
@@ -172,6 +174,32 @@ Phases (any failure exits non-zero; nothing is caught):
              SimmRevaluationFlow between two card nodes on the demo book and
              a 4,096-trade book: B10 launched twice a flow (once a side),
              the agreed cents those of compute_margin_cents on the card.
+7e. finance — contracts and finance on the card. A MockNetwork(device=
+             "cuda") with a ValidatingNotaryService notary (Ed25519), three
+             banks (Ed25519, secp256k1, secp256r1 identities), a secp256k1
+             buyer and a secp256r1 seller, every node's verifier service
+             the port's TpuTransactionVerifierService(batcher=
+             SignatureBatcher(device="cuda", host_crossover=0)) at phase
+             7d's receiver deadline. Each bank issues 512 USD coins to the
+             buyer through CashIssueFlow (100.00 + d cents, d in -256..256
+             without 0: identical issuances would be one transaction; the
+             banks' signatures made ahead on a process pool, which
+             Crypto.do_sign answers from): every flow returns, the buyer
+             holds the 1,536 coins under three issuer tokens, no host
+             routing. The seller issues itself a CommercialPaper of face
+             value 153,600.00 USD through FinalityFlow and sells it to the
+             buyer through SellerFlow / BuyerFlow for all the coins (1,537
+             inputs, three cash outputs): both flows return the notarised
+             trade, the buyer holds the paper and no cash, the seller the
+             three USD states summing to the price, every coin consumed,
+             the seller and the notary recorded every issuance while
+             resolving it in one VerifyMany wave each, and B2, B3 and B4
+             launched during the trade (counts set to 0 just before, read
+             just after), each fewer than FINANCE_LAUNCH_LIMIT times.
+             Then a double spend by the buyer and a contract failure by the
+             seller fail at their FinalityFlow's yield with the reference's
+             NotaryException and messages, nothing recorded, no other
+             ledger changed, every breaker closed.
 8. ab      — only with --ab PARENT (a directory holding an earlier commit's
              corda_tpu_torch/csrc, e.g. unpacked by git archive): that
              commit's B3, B5, both B7 and both B8 kernels built beside this
@@ -442,6 +470,15 @@ FLOW_INTERACTIVE_S, FLOW_PROBE = 0.05, 64
 ORACLE_FIXES, ORACLE_AGREED = 16, 7
 SIMM_FLOW_TRADES = 4096
 FLOWS_IDLE_S = 300.0
+#: Finance phase: each of three banks issues FINANCE_COINS coins (under
+#: the issuer reference FINANCE_REF) to the buyer; the trade spends all of
+#: them. The seller's and the notary's resolution waves carry FINANCE_COINS
+#: signatures a scheme each, so a scheme launched FINANCE_LAUNCH_LIMIT
+#: times or more during the trade (once for every 16 of the waves'
+#: signatures, or more often) fails the phase: the waves' signatures did
+#: not coalesce.
+FINANCE_COINS, FINANCE_REF = 512, b"\x01"
+FINANCE_LAUNCH_LIMIT = 64
 
 #: B6 (csrc/sha256.cu): 32-bit integer instructions (LOP3, SHF, IADD3) of a
 #: Merkle pair — a compression and the pad block's — and of one block of
@@ -2160,6 +2197,362 @@ def flows_phase(card, dev, seed: int, ctx) -> tuple[dict, dict]:
 
 
 # ---------------------------------------------------------------------------
+# Phase 7e: contracts and finance, a delivery-versus-payment trade
+# ---------------------------------------------------------------------------
+
+def coin_cents(coins: int) -> list:
+    """The cents of each of a bank's ``coins`` coins: 100.00 + d for d in
+    -coins/2..coins/2 without 0. Two issuances alike (same issuer, amount,
+    owner and notary) would be one transaction with one id, so the coins
+    differ by cents and still sum to coins x 100.00."""
+    half = coins // 2
+    return [10_000 + d for d in range(-half, half + 1) if d]
+
+
+class presigned:
+    """Within the block, ``Crypto.do_sign`` answers from ``memo`` (keyed by
+    private key bytes and message) and signs on the host otherwise, counting
+    the answers in ``hits``. Host ECDSA signing is pure Python (~0.07-0.1 s
+    a signature), so the banks' issuance signatures are made ahead on a
+    process pool; RFC 6979 (ECDSA) and Ed25519 signing are deterministic,
+    so the memo holds the bytes the flows' own signing would make."""
+
+    def __init__(self, memo: dict):
+        self.memo = memo
+        self.hits = 0
+
+    def __enter__(self):
+        from corda_tpu_torch.core.crypto.signatures import Crypto
+        self.crypto = Crypto
+        self.host_sign = Crypto.__dict__["do_sign"]
+        sign = self.host_sign.__func__
+
+        def do_sign(private, content, public=None):
+            sig = self.memo.get((private.encoded, bytes(content)))
+            if sig is None:
+                return sign(private, content, public)
+            self.hits += 1
+            return sig
+        Crypto.do_sign = staticmethod(do_sign)
+        return self
+
+    def __exit__(self, *exc):
+        self.crypto.do_sign = self.host_sign
+        return False
+
+
+def finance_phase(card, dev, seed: int, ctx) -> tuple[dict, dict]:
+    """Phase 7e: three banks issue FINANCE_COINS coins each to a buyer
+    through CashIssueFlow, a seller sells the buyer a CommercialPaper for
+    all of them through SellerFlow / BuyerFlow, a validating notary
+    signing, then a double spend and a contract failure are refused. Every
+    node verifies through the port's TpuTransactionVerifierService on
+    ``dev``. Returns (results, launches by kernel during the trade)."""
+    import datetime
+    from corda_tpu_torch.core.contracts import (Amount, Issued,
+                                                PartyAndReference,
+                                                StateAndRef, StateRef,
+                                                TimeWindow, USD)
+    from corda_tpu_torch.core.crypto import generate_keypair
+    from corda_tpu_torch.core.crypto.schemes import (ECDSA_SECP256K1_SHA256,
+                                                     ECDSA_SECP256R1_SHA256,
+                                                     EDDSA_ED25519_SHA512)
+    from corda_tpu_torch.core.serialization.codec import exact_epoch_micros
+    from corda_tpu_torch.core.transactions import TransactionBuilder
+    from corda_tpu_torch.finance import (BuyerFlow, Cash, CashIssueFlow,
+                                         CashState, CommercialPaper,
+                                         CommercialPaperState, SellerFlow)
+    from corda_tpu_torch.finance.cash import Move as CashMove
+    from corda_tpu_torch.flows.library import (FetchTransactionsHandler,
+                                               FinalityFlow)
+    from corda_tpu_torch.ops import ed25519 as ed
+    from corda_tpu_torch.ops import weierstrass as wc
+    from corda_tpu_torch.testing import MockNetwork
+    from corda_tpu_torch.verifier import (SignatureBatcher,
+                                          TpuTransactionVerifierService)
+    kernels = {"ed25519": ed.verify_core_split,
+               "secp256k1": wc.verify_core_hybrid_wide,
+               "secp256r1": wc.verify_core_r1_split}
+    schemes = {"ed25519": EDDSA_ED25519_SHA512,
+               "secp256k1": ECDSA_SECP256K1_SHA256,
+               "secp256r1": ECDSA_SECP256R1_SHA256}
+    rng = random.Random(seed)
+    t_phase = time.perf_counter()
+
+    network = MockNetwork(device=dev)
+    notary = network.create_notary_node(validating=True)
+    banks = {name: network.create_node(
+        f"O=Bank {name}, L=London, C=GB",
+        key_pair=generate_keypair(scheme, entropy=rng.randbytes(32)))
+        for name, scheme in schemes.items()}
+    buyer = network.create_node(
+        "O=Buyer, L=New York, C=US", key_pair=generate_keypair(
+            ECDSA_SECP256K1_SHA256, entropy=rng.randbytes(32)))
+    seller = network.create_node(
+        "O=Seller, L=Tokyo, C=JP", key_pair=generate_keypair(
+            ECDSA_SECP256R1_SHA256, entropy=rng.randbytes(32)))
+    network.start_nodes()
+    nodes = {"notary": notary, **{f"bank {n}": b for n, b in banks.items()},
+             "buyer": buyer, "seller": seller}
+    for node in network.nodes:
+        node.services.verifier_service = TpuTransactionVerifierService(
+            batcher=SignatureBatcher(device=dev, host_crossover=0,
+                                     interactive_latency_s=FLOW_INTERACTIVE_S))
+
+    # the issuances as CashIssueFlow builds them, signed ahead on a pool
+    cents = coin_cents(FINANCE_COINS)
+    issues, jobs = [], []
+    for c in cents:
+        for name, bank in banks.items():
+            b = TransactionBuilder(notary=notary.party)
+            Cash.generate_issue(b, Amount(c, USD),
+                                PartyAndReference(bank.party, FINANCE_REF),
+                                buyer.party.owning_key, notary.party)
+            wtx = b.to_wire_transaction()
+            issues.append((name, c, wtx.id))
+            jobs.append((bank.key_pair.private.scheme.scheme_number_id,
+                         bank.key_pair.private.encoded, wtx.id.bytes))
+    with ProcessPoolExecutor(max_workers=min(8, os.cpu_count() or 1),
+                             mp_context=ctx) as pool:
+        sigs = list(pool.map(_sign_job, jobs, chunksize=16))
+    memo = {(private, msg): sig for (_, private, msg), sig in zip(jobs, sigs)}
+    setup_s = time.perf_counter() - t_phase
+
+    # -- 1. issuance ---------------------------------------------------------
+    for k in kernels.values():
+        k.launches = 0
+    t0 = time.perf_counter()
+    with presigned(memo) as signer:
+        fsms = [banks[name].start_flow(CashIssueFlow(
+            Amount(c, USD), FINANCE_REF, buyer.party, notary.party))
+            for name, c, _ in issues]
+        network.run_network(idle_timeout=FLOWS_IDLE_S)
+    issue_s = time.perf_counter() - t0
+    issue_launches = {n: k.launches for n, k in kernels.items()}
+    n_coins = len(issues)
+    if signer.hits != n_coins:
+        raise SystemExit(f"finance: {signer.hits} of {n_coins} issuance "
+                         "signatures were the presigned ones")
+    for (_, _, tx_id), fsm in zip(issues, fsms):
+        if fsm.result_future.result(timeout=0).id != tx_id:
+            raise SystemExit("finance: a CashIssueFlow returned another "
+                             "transaction")
+    coins = buyer.services.vault.unconsumed_states(CashState)
+    total = sum(s.state.data.amount.quantity for s in coins)
+    tokens = {s.state.data.amount.token for s in coins}
+    if (len(coins), total, len(tokens)) != (n_coins, 3 * sum(cents), 3):
+        raise SystemExit(f"finance: the buyer holds {len(coins)} coins, "
+                         f"{total} cents under {len(tokens)} tokens")
+    snap = buyer.services.verifier_service.batcher.metrics.snapshot()
+    require_clean(snap, buyer.services.verifier_service.batcher
+                  .breaker_status(), n_coins, "finance (buyer's issuances)")
+    for name, n in issue_launches.items():
+        log(f"finance: issuance {name} {n} launches for {len(cents)} "
+            "verifications on the buyer")
+        if n == 0:
+            raise SystemExit(f"finance: {name} was launched no time for the "
+                             "issuances")
+
+    # -- 2. the trade ----------------------------------------------------------
+    price = Amount(3 * sum(cents), USD)
+    now = datetime.datetime.now(datetime.timezone.utc)
+    issuance = PartyAndReference(seller.party, b"\x07")
+    b = TransactionBuilder(notary=notary.party)
+    CommercialPaper.generate_issue(
+        b, issuance, Amount(price.quantity, Issued(issuance, USD)),
+        exact_epoch_micros(now + datetime.timedelta(days=90)), notary.party)
+    b.set_time_window(TimeWindow.with_tolerance(
+        now, datetime.timedelta(seconds=30)))
+    fsm = seller.start_flow(FinalityFlow(
+        seller.services.sign_initial_transaction(b.to_wire_transaction())))
+    network.run_network(idle_timeout=FLOWS_IDLE_S)
+    paper_tx = fsm.result_future.result(timeout=0)
+    paper = StateAndRef(paper_tx.tx.outputs[0], StateRef(paper_tx.id, 0))
+
+    issued_ids = {tx_id for _, _, tx_id in issues}
+    marks, buys = {}, []
+
+    def on_flow(who):
+        def cb(ev, fsm):
+            if ev != "add":
+                return
+            if isinstance(fsm.flow, BuyerFlow):
+                buys.append(fsm)
+            if isinstance(fsm.flow, FetchTransactionsHandler):
+                marks.setdefault((who, str(fsm.flow.peer.name)),
+                                 time.perf_counter())
+        return cb
+
+    def on_record(who):
+        seen = set()
+
+        def cb(stx):
+            if stx.id in issued_ids:
+                seen.add(stx.id)
+                if len(seen) == n_coins:
+                    marks[(who, "recorded")] = time.perf_counter()
+        return cb
+    for who, node in (("buyer", buyer), ("seller", seller)):
+        node.smm.changes.append(on_flow(who))
+    for who, node in (("seller", seller), ("notary", notary)):
+        node.services.storage.add_commit_listener(on_record(who))
+    checked0 = {who: count(node.services.verifier_service.batcher.metrics
+                           .snapshot(), "SigBatcher.DeviceChecked")
+                for who, node in nodes.items()}
+    for k in kernels.values():
+        k.launches = 0
+    t0 = time.perf_counter()
+    sell = seller.start_flow(SellerFlow(buyer.party, paper, price))
+    network.run_network(idle_timeout=FLOWS_IDLE_S)
+    trade_s = time.perf_counter() - t0
+    launches = {n: k.launches for n, k in kernels.items()}
+
+    final = sell.result_future.result(timeout=0)
+    if len(buys) != 1 or buys[0].result_future.result(timeout=0).id \
+            != final.id:
+        raise SystemExit("finance: the buyer's flow did not return the "
+                         "seller's notarised transaction")
+    if notary.party.owning_key not in {s.by for s in final.sigs}:
+        raise SystemExit("finance: the trade carries no notary signature")
+    cash_outs = [o.data for o in final.tx.outputs
+                 if isinstance(o.data, CashState)]
+    if (len(final.tx.inputs), len(cash_outs)) != (n_coins + 1, 3):
+        raise SystemExit(f"finance: the trade has {len(final.tx.inputs)} "
+                         f"inputs and {len(cash_outs)} cash outputs")
+    held = buyer.services.vault.unconsumed_states()
+    if [type(s.state.data) for s in held] != [CommercialPaperState] or \
+            held[0].ref.txhash != final.id:
+        raise SystemExit(f"finance: the buyer holds {held}")
+    paid = seller.services.vault.unconsumed_states(CashState)
+    if (len(paid), sum(s.state.data.amount.quantity for s in paid)) != \
+            (3, price.quantity):
+        raise SystemExit(f"finance: the seller holds {len(paid)} USD "
+                         "states that do not sum to the price")
+    consumed = {s.ref.txhash for s in buyer.services.vault.query(
+        CashState, status="consumed")}
+    unspent = {s.ref.txhash for node in (buyer, seller)
+               for s in node.services.vault.unconsumed_states(CashState)}
+    if not issued_ids <= consumed or issued_ids & unspent:
+        raise SystemExit("finance: a coin is not consumed")
+    for who, node in (("seller", seller), ("notary", notary)):
+        recorded = {stx.id for stx in node.services.storage.transactions}
+        if not issued_ids <= recorded:
+            raise SystemExit(f"finance: the {who} recorded "
+                             f"{len(issued_ids & recorded)} issuances")
+    # the signatures each scheme verified during the trade: the seller's
+    # and the notary's waves carry one an issuance (the notary's also the
+    # notarised paper's two), the buyer resolves the paper (two), the
+    # notary verifies the trade's two and the buyer the notarised trade's
+    # three
+    wave = len(cents)
+    sigs = {"ed25519": 2 * wave + 3, "secp256k1": 2 * wave + 2,
+            "secp256r1": 2 * wave + 4}
+    checked = {who: count(node.services.verifier_service.batcher.metrics
+                          .snapshot(), "SigBatcher.DeviceChecked")
+               - checked0[who] for who, node in nodes.items()}
+    if sum(checked.values()) != sum(sigs.values()):
+        raise SystemExit(f"finance: the batchers checked {checked} "
+                         f"signatures during the trade, {sigs} expected")
+    for name, n in launches.items():
+        log(f"finance: trade {name} {n} launches for {sigs[name]} "
+            f"signatures ({wave} in each of the seller's and notary's "
+            "waves)")
+        if n == 0 or n >= FINANCE_LAUNCH_LIMIT:
+            raise SystemExit(f"finance: {name} launched {n} times during "
+                             "the trade: the waves' signatures did not "
+                             "coalesce")
+    seller_res = marks[("seller", "recorded")] - \
+        marks[("buyer", str(seller.party.name))]
+    notary_res = marks[("notary", "recorded")] - \
+        marks[("seller", str(notary.party.name))]
+
+    # -- 3. refusals -----------------------------------------------------------
+    stored = {who: len(node.services.storage.transactions)
+              for who, node in nodes.items()}
+    spent = next(s for s in buyer.services.vault.query(
+        CashState, status="consumed") if s.ref.txhash in issued_ids)
+    b = TransactionBuilder()
+    b.add_input_state(spent)
+    b.add_output_state(CashState(spent.state.data.amount,
+                                 seller.party.owning_key))
+    b.add_command(CashMove(), buyer.party.owning_key)
+    double = buyer.services.sign_initial_transaction(b.to_wire_transaction())
+    coin = paid[0]
+    more = Amount(coin.state.data.amount.quantity + 1,
+                  coin.state.data.amount.token)
+    b = TransactionBuilder()
+    b.add_input_state(coin)
+    b.add_output_state(CashState(more, buyer.party.owning_key))
+    b.add_command(CashMove(), seller.party.owning_key)
+    bad = seller.services.sign_initial_transaction(b.to_wire_transaction())
+    refusals = {}
+    for label, node, stx, prefix in (
+            ("double_spend", buyer, double,
+             "Input states already consumed: "),
+            ("contract_failure", seller, bad,
+             "Contract verification failed: Cash not conserved")):
+        fsm = node.start_flow(FinalityFlow(stx))
+        network.run_network(idle_timeout=FLOWS_IDLE_S)
+        exc = fsm.result_future.exception(timeout=0)
+        if type(exc).__name__ != "NotaryException" or \
+                not str(exc).startswith(prefix):
+            raise SystemExit(f"finance: the {label} ended with {exc!r}")
+        if any(n.services.storage.get_transaction(stx.id)
+               for n in nodes.values()):
+            raise SystemExit(f"finance: the {label} was recorded")
+        refusals[label] = [type(exc).__name__, str(exc)]
+    after = {who: len(node.services.storage.transactions)
+             for who, node in nodes.items()}
+    after["notary"] -= 1      # resolved the trade for the contract failure
+    if after != stored or buyer.services.vault.unconsumed_states() != held \
+            or seller.services.vault.unconsumed_states(CashState) != paid:
+        raise SystemExit("finance: the refusals changed another flow's "
+                         "ledger")
+
+    receivers = {}
+    for who, node in nodes.items():
+        svc = node.services.verifier_service
+        snap = svc.batcher.metrics.snapshot()
+        if count(snap, "SigBatcher.HostRouted") != 0 or \
+                count(snap, "SigBatcher.BatchFailure") != 0:
+            raise SystemExit(f"finance: the {who}'s batcher routed to the "
+                             "host")
+        if any(b["state"] != "closed"
+               for b in svc.batcher.breaker_status().values()):
+            raise SystemExit(f"finance: a breaker of the {who} is open")
+        receivers[who] = {
+            "device_checked": count(snap, "SigBatcher.DeviceChecked"),
+            "device_batches": count(snap, "SigBatcher.DeviceBatches")}
+        svc.shutdown()
+    phase_s = time.perf_counter() - t_phase
+    log(f"finance: issuance {issue_s:.2f} s, trade {trade_s:.2f} s "
+        f"(seller's resolution {seller_res:.2f} s, notary's "
+        f"{notary_res:.2f} s), phase {phase_s:.1f} s")
+    return {"card": card, "coins": n_coins, "coins_per_bank": len(cents),
+            "price_cents": price.quantity,
+            "trade_inputs": len(final.tx.inputs),
+            "interactive_latency_s": FLOW_INTERACTIVE_S,
+            "issuance": {"flows": n_coins, "seconds": issue_s,
+                         "flows_per_s": n_coins / issue_s,
+                         "launches": issue_launches,
+                         "verifications_a_scheme": len(cents)},
+            "trade": {"seconds": trade_s,
+                      "seller_resolution_s": seller_res,
+                      "notary_resolution_s": notary_res,
+                      "launches": launches, "signatures": sigs,
+                      "signatures_per_launch": {
+                          n: sigs[n] / launches[n] for n in launches},
+                      "launch_limit": FINANCE_LAUNCH_LIMIT,
+                      "checked_by_node": checked},
+            "refusals": refusals, "receivers": receivers,
+            "seconds": {"setup": setup_s, "issuance": issue_s,
+                        "trade": trade_s, "phase": phase_s}}, {
+        "ed25519_split_verify": launches["ed25519"],
+        "secp256k1_hybrid_verify": launches["secp256k1"],
+        "secp256r1_split_verify": launches["secp256r1"]}
+
+
+# ---------------------------------------------------------------------------
 # B7 (Ed25519 Shamir and windowed ladders) and B10 (SIMM margin)
 # ---------------------------------------------------------------------------
 
@@ -3405,6 +3798,13 @@ def main() -> int:
     log(json.dumps({"path": "flows", **flows_out,
                     "kernel_launches": flow_launches}))
     t_phase = log_phase("flows", t_phase)
+
+    # -- phase 7e: contracts and finance -------------------------------------
+    finance_out, finance_launches = finance_phase(card, dev, args.seed + 67,
+                                                  ctx)
+    log(json.dumps({"path": "finance", **finance_out,
+                    "kernel_launches": finance_launches}))
+    t_phase = log_phase("finance", t_phase)
 
     # -- phase 8: an earlier commit's B3, B5, B7 and B8 ----------------------
     if args.ab is not None:

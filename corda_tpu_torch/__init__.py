@@ -9,8 +9,12 @@ its signature-verification service path for one H100:
   ``_build`` into ``_build/``)
 - ``corda_tpu_torch.verifier``   — SignatureBatcher and the verifier services
 - ``corda_tpu_torch.parallel``   — meshes of devices and sharded verification
-- ``corda_tpu_torch.flows`` / ``node`` / ``storage`` — the flow framework,
-  the node's services, state machine and notary, and the key-value store
+- ``corda_tpu_torch.flows`` / ``node`` / ``storage`` — the flow framework
+  (notary change and contract upgrade among its flows), the node's
+  services, state machine and notary, and the key-value store
+- ``corda_tpu_torch.finance`` / ``experimental`` — the finance CorDapp
+  (Cash, CommercialPaper, Commodity, Obligation, the cash, deal and trade
+  flows) and the universal contract
 - ``corda_tpu_torch.network``    — the messaging SPI and the in-memory bus
 - ``corda_tpu_torch.testing``    — MockNetwork, mock services and fixtures
 - ``corda_tpu_torch.samples``    — the rates oracle and the SIMM valuation

@@ -1,12 +1,13 @@
 """The ledger algebra: states, commands, amounts, transaction-verification rules.
 
 Own copies of the reference package's contracts modules of the same names
-(``amount.py`` with ``Amount`` and the currency helpers among them), with
-the same registered wire names and field orders. The clause library, the
-attachment contract and the contract sandbox are not ported yet.
+(``amount.py`` with ``Amount`` and the currency helpers among them, the
+clause library ``clauses.py``, the deterministic sandbox ``sandbox.py`` and
+the attachment contract ``attachment_contract.py``), with the same
+registered wire names and field orders.
 
 Reference parity: core/.../contracts/ (Structures.kt, Amount.kt,
-TransactionVerification.kt, TransactionTypes.kt).
+TransactionVerification.kt, TransactionTypes.kt, clauses/).
 """
 from .structures import (
     Contract, ContractState, OwnableState, FungibleAsset, LinearState, SchedulableState,

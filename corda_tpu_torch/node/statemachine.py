@@ -1078,12 +1078,12 @@ def _error_payload(exc: Exception):
 #: able to trigger arbitrary import side effects or invoke arbitrary
 #: one-string-arg callables — mirrors the reference's checkpoint class
 #: restrictions (CheckpointSerializationScheme).
-#: Only this package's modules, and of those only the ones it has (the
-#: state-replacement and contract-upgrade flows come with the finance
-#: slice).
+#: Only this package's modules.
 _ERROR_MODULES = (
     "corda_tpu_torch.flows.api",
     "corda_tpu_torch.flows.library",
+    "corda_tpu_torch.flows.state_replacement",
+    "corda_tpu_torch.flows.contract_upgrade",
     "corda_tpu_torch.core.contracts.exceptions",
     "corda_tpu_torch.core.crypto.signatures",
     "corda_tpu_torch.core.crypto.merkle",

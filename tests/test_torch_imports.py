@@ -24,8 +24,8 @@ def _modules():
         yield path, ".".join(parts)
 
 
-#: The packages of the flow framework slice, and a module of each, that the
-#: scans below must reach.
+#: The packages of the flow framework and finance slices, and a module of
+#: each, that the scans below must reach.
 SLICE_MODULES = ("corda_tpu_torch.flows", "corda_tpu_torch.flows.api",
                  "corda_tpu_torch.flows.library",
                  "corda_tpu_torch.flows.confidential",
@@ -36,7 +36,17 @@ SLICE_MODULES = ("corda_tpu_torch.flows", "corda_tpu_torch.flows.api",
                  "corda_tpu_torch.testing.mocknetwork",
                  "corda_tpu_torch.observability.resprof",
                  "corda_tpu_torch.core.contracts.amount",
-                 "corda_tpu_torch.core.transactions.builder")
+                 "corda_tpu_torch.core.transactions.builder",
+                 "corda_tpu_torch.finance", "corda_tpu_torch.finance.cash",
+                 "corda_tpu_torch.finance.trade",
+                 "corda_tpu_torch.experimental",
+                 "corda_tpu_torch.experimental.universal",
+                 "corda_tpu_torch.flows.contract_upgrade",
+                 "corda_tpu_torch.flows.state_replacement",
+                 "corda_tpu_torch.core.contracts.sandbox",
+                 "corda_tpu_torch.core.contracts.clauses",
+                 "corda_tpu_torch.core.contracts.attachment_contract",
+                 "corda_tpu_torch.testing.ledger_dsl")
 
 
 def test_the_scans_reach_the_flow_framework_packages():
@@ -138,8 +148,15 @@ def test_error_modules_are_the_ports_own():
     for name in statemachine._ERROR_MODULES:
         assert name.startswith("corda_tpu_torch.")
         importlib.import_module(name)
-    assert "corda_tpu_torch.flows.api:FlowTimeoutException" in \
-        statemachine._error_registry()
+    assert {"corda_tpu_torch.flows.state_replacement",
+            "corda_tpu_torch.flows.contract_upgrade"} <= set(
+        statemachine._ERROR_MODULES)
+    registry = statemachine._error_registry()
+    assert "corda_tpu_torch.flows.api:FlowTimeoutException" in registry
+    assert "corda_tpu_torch.flows.state_replacement:StateReplacementException" \
+        in registry
+    assert "corda_tpu_torch.flows.contract_upgrade:ContractUpgradeException" \
+        in registry
 
 
 def test_default_device_raises_without_cuda():

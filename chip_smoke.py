@@ -9,7 +9,9 @@ SIMM margin, the out-of-process verifier (workers on the card behind an
 in-memory bus), the in-process verifier fleet under its controller, the
 flow framework: flows on a MockNetwork verifying through the card, and
 the finance CorDapp: a delivery-versus-payment trade whose cash history
-the seller and a validating notary resolve on the card.
+the seller and a validating notary resolve on the card, and consensus:
+validating notaries on replicated commit logs (Raft on its native core,
+a sharded notary, BFT) notarising payments they verify on the card.
 
     python3 chip_smoke.py [--seed N] [--only-kernels NAMES] [--ab PARENT]
 
@@ -17,8 +19,9 @@ Phases (any failure exits non-zero; nothing is caught):
 
 1. probe   — card name and power limit (nvidia-smi), torch/CUDA versions,
              parallel build of the ten CUDA kernel libraries,
-             libscalarmath and libkvlog (seconds, and nvcc's register/spill
-             report); the native scalar prep must be in use.
+             libscalarmath, libkvlog and libraftcore (native/raftcore.cpp;
+             seconds, and nvcc's register/spill report); the native scalar
+             prep must be in use.
 2. kernels — each kernel against its plain PyTorch version on the card at
              buckets 256, 1024 (the interactive batch), 4096 and 32768:
              B2 Ed25519 split-k, B3 secp256k1 hybrid GLV and B4 secp256r1
@@ -200,6 +203,44 @@ Phases (any failure exits non-zero; nothing is caught):
              seller fail at their FinalityFlow's yield with the reference's
              NotaryException and messages, nothing recorded, no other
              ledger changed, every breaker closed.
+7f. consensus — validating notaries on replicated commit logs. One
+             MockNetwork(device="cuda"): three banks (Ed25519, secp256k1,
+             secp256r1), three Ed25519 payers, a payee and three Ed25519
+             notaries, every node verifying through the port's
+             TpuTransactionVerifierService(batcher=SignatureBatcher(
+             device="cuda", host_crossover=0)) at phase 7d's receiver
+             deadline. The notaries' commit logs: a ValidatingNotaryService
+             on RaftUniquenessProvider.build(native=None) over 3 replicas
+             (the native core; its entry a follower's provider, commits on
+             the group-commit path), a ShardedNotaryService over 2 Raft
+             groups of 3 Python replicas, and a ValidatingNotaryService on
+             BFTUniquenessProvider over 4 replicas (f = 1) — the replicas
+             bus endpoints of their own, ticked and drained by a thread
+             (ReplicaPump). Each bank issues 256 / 256 / 32 coins for the
+             three notaries (100.00 + d cents, signed ahead on a pool)
+             round-robin to the payers; then, per backend, every payer
+             pays the payee 150.00 USD with every pair of its coins at
+             once (384 / 384 / 48 payments, the other backends' coins
+             soft-locked), and the Raft leader is killed (its replica
+             stopped, its traffic dropped) once half the payments have
+             committed. Every payment returns a notarised transaction
+             once; the USD held sums to what was issued; the live
+             replicas' applied maps are equal and consume each input for
+             its one payment; B2, B3 and B4 launched on the notary's
+             batcher at 2 signatures a launch or more (counts set to 0
+             just before the payments, read just after); no host routing,
+             every breaker closed; the group commit made fewer Raft
+             appends than it committed transactions (Raft, sharded), no
+             reservation is left, nothing is in doubt and payments crossed
+             shards (sharded). 8 replays of committed refs under fresh ids
+             go straight at each provider and are refused naming the
+             original; on the Raft notary a double spend through
+             FinalityFlow fails with NotaryException ("Input states
+             already consumed: ..."), nothing recorded. Prints payments/s,
+             notary_uniqueness_seconds p50/p99, batch occupancy, appends a
+             committed transaction, cross-shard payments, the seconds from
+             the leader's kill to the next leader, and each notary's
+             launches against its signatures.
 8. ab      — only with --ab PARENT (a directory holding an earlier commit's
              corda_tpu_torch/csrc, e.g. unpacked by git archive): that
              commit's B3, B5, both B7 and both B8 kernels built beside this
@@ -479,6 +520,24 @@ FLOWS_IDLE_S = 300.0
 #: not coalesce.
 FINANCE_COINS, FINANCE_REF = 512, b"\x01"
 FINANCE_LAUNCH_LIMIT = 64
+#: Consensus phase (7f): three validating notaries on replicated commit
+#: logs — Raft on the native core (3 replicas, group commit, the leader
+#: killed halfway), a sharded notary (2 Raft groups of 3 Python replicas)
+#: and BFT (4 replicas, f = 1). Each bank issues a backend's coins (100.00
+#: + d cents, under CONSENSUS_REF) round-robin to the three payers, and
+#: each payer pays the payee CONSENSUS_PAY_CENTS a payment: one coin is at
+#: most 100.00 + coins/2 cents, so every payment spends two coins and
+#: returns change, and a backend's payments spend every one of its coins.
+CONSENSUS_COINS = {"raft": 256, "sharded": 256, "bft": 32}
+CONSENSUS_REF, CONSENSUS_PAY_CENTS = b"\x02", 15_000
+#: Replays of committed refs under fresh transaction ids, straight at each
+#: backend's provider; each must be refused naming the original.
+CONSENSUS_REPLAYS = 8
+#: The Raft entry's per-attempt bound on a consensus round
+#: (provider.consensus_round): a batch stranded on the killed leader is
+#: re-submitted after this long instead of waiting out the provider's
+#: 30 s timeout. The replicas' pump sleeps CONSENSUS_PUMP_S a loop.
+CONSENSUS_ATTEMPT_S, CONSENSUS_PUMP_S = 1.0, 0.002
 
 #: B6 (csrc/sha256.cu): 32-bit integer instructions (LOP3, SHF, IADD3) of a
 #: Merkle pair — a compression and the pad block's — and of one block of
@@ -2553,6 +2612,558 @@ def finance_phase(card, dev, seed: int, ctx) -> tuple[dict, dict]:
 
 
 # ---------------------------------------------------------------------------
+# Phase 7f: consensus, validating notaries on replicated commit logs
+# ---------------------------------------------------------------------------
+
+class ReplicaPump:
+    """The replicas of every backend are bus endpoints of their own, which
+    ``MockNetwork.run_network(exclude=...)`` leaves to this thread: each
+    loop it ticks every live Raft replica and BFT replica and drains the
+    replicas' (and the BFT client's) queues, as the reference's ledger
+    harness does. ``kill_when(n, meter, entry)`` arms the Raft leader's
+    kill: once ``meter`` counts ``n``, the leader stops, leaves the bus
+    (its traffic dropped) and is ticked no more; the seconds until a
+    survivor leads are kept. ``close`` stops the thread."""
+
+    def __init__(self, bus, rafts: list, bft_replicas: list,
+                 endpoints: list):
+        import threading
+        self.bus = bus
+        self.rafts = list(rafts)
+        self.bft = list(bft_replicas)
+        self.endpoints = list(endpoints)
+        self.dead: set = set()
+        self.kill = None
+        self.killed = None           # (name, t_kill)
+        self.next_leader = None      # (name, seconds after the kill)
+        self.kill_error = None
+        self.loops = 0
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True,
+                                         name="consensus-pump")
+        self._thread.start()
+
+    def kill_when(self, n: int, meter, group: list, entry) -> None:
+        self.kill = (n, meter, list(group), entry)
+
+    def _maybe_kill(self) -> None:
+        from corda_tpu_torch.consensus.raft import LEADER
+        n, meter, group, entry = self.kill
+        if self.killed is None:
+            if meter.count < n:
+                return
+            leader = next((r for r in group if r.role == LEADER), None)
+            if leader is None:
+                return
+            if leader is entry:
+                self.kill = None
+                self.kill_error = (f"the leader {leader.node_id} is the "
+                                   "notary's entry replica")
+                return
+            name = leader.node_id
+            leader.stop()
+            self.dead.add(name)
+            self.bus.transfer_filter = \
+                lambda t, name=name: name not in (t.sender, t.recipient)
+            self.killed = (name, time.perf_counter())
+            return
+        name, t_kill = self.killed
+        for r in group:
+            if r.node_id != name and r.role == LEADER:
+                self.next_leader = (r.node_id, time.perf_counter() - t_kill)
+                self.kill = None
+                return
+
+    def _run(self) -> None:
+        while not self._stop.is_set():
+            if self.kill is not None:
+                self._maybe_kill()
+            for r in self.rafts:
+                if r.node_id not in self.dead:
+                    r.tick()
+            for r in self.bft:
+                r.tick()
+            for name in self.endpoints:
+                if name in self.dead:
+                    continue
+                while self.bus.pump_receive(name) is not None:
+                    pass
+            self.loops += 1
+            time.sleep(CONSENSUS_PUMP_S)
+
+    def close(self) -> None:
+        self._stop.set()
+        self._thread.join(timeout=10)
+        if self._thread.is_alive():
+            raise SystemExit("consensus: the replicas' pump did not stop")
+        self.bus.transfer_filter = None
+
+
+def count_notary_launches(batcher) -> dict:
+    """Counts each device batch the notary's batcher starts — one kernel
+    launch — and the signatures it carries, by scheme: {scheme: [launches,
+    signatures]}, zeroed by the caller."""
+    import threading
+    lock = threading.Lock()
+    counts = {"ed25519": [0, 0], "secp256k1": [0, 0], "secp256r1": [0, 0]}
+    start_ed, start_ec = batcher._start_ed25519, batcher._start_ecdsa
+
+    def bump(scheme, n):
+        with lock:
+            counts[scheme][0] += 1
+            counts[scheme][1] += n
+
+    def ed_start(items):
+        bump("ed25519", len(items))
+        return start_ed(items)
+
+    def ec_start(bucket, items):
+        bump(bucket, len(items))
+        return start_ec(bucket, items)
+    batcher._start_ed25519 = ed_start
+    batcher._start_ecdsa = ec_start
+    return counts
+
+
+def consensus_phase(card, dev, seed: int, ctx) -> tuple[dict, dict]:
+    """Phase 7f: three validating notaries on replicated commit logs —
+    Raft on the native core with group commit (its leader killed when half
+    the payments have committed), a sharded notary over two Raft groups
+    with cross-shard two-phase commit, and BFT — each notarising the
+    payers' CashPaymentFlows after resolving and verifying their history
+    through its own batcher on ``dev``. Returns (results, launches by
+    kernel summed over the backends' payments)."""
+    from corda_tpu_torch.consensus.bft import BFTClient, BFTReplica
+    from corda_tpu_torch.consensus.raft_uniqueness import (
+        DistributedImmutableMap, RaftUniquenessProvider)
+    from corda_tpu_torch.consensus.raftcore import NativeRaftNode
+    from corda_tpu_torch.consensus.sharded_uniqueness import \
+        ShardedNotaryService
+    from corda_tpu_torch.core.crypto import generate_keypair
+    from corda_tpu_torch.core.crypto.schemes import (ECDSA_SECP256K1_SHA256,
+                                                     ECDSA_SECP256R1_SHA256,
+                                                     EDDSA_ED25519_SHA512)
+    from corda_tpu_torch.node.notary import ValidatingNotaryService
+    from corda_tpu_torch.node.services import ServiceInfo
+    from corda_tpu_torch.ops import ed25519 as ed
+    from corda_tpu_torch.ops import weierstrass as wc
+    from corda_tpu_torch.testing import MockNetwork
+    from corda_tpu_torch.verifier import (SignatureBatcher,
+                                          TpuTransactionVerifierService)
+    kernels = {"ed25519": ed.verify_core_split,
+               "secp256k1": wc.verify_core_hybrid_wide,
+               "secp256r1": wc.verify_core_r1_split}
+    schemes = {"ed25519": EDDSA_ED25519_SHA512,
+               "secp256k1": ECDSA_SECP256K1_SHA256,
+               "secp256r1": ECDSA_SECP256R1_SHA256}
+    rng = random.Random(seed)
+    t_phase = time.perf_counter()
+
+    def key(scheme):
+        return generate_keypair(scheme, entropy=rng.randbytes(32))
+
+    network = MockNetwork(device=dev)
+    banks = [network.create_node(f"O=Bank {name}, L=London, C=GB",
+                                 key_pair=key(scheme))
+             for name, scheme in schemes.items()]
+    payers = [network.create_node(f"O=Payer {i}, L=Oslo, C=NO",
+                                  key_pair=key(EDDSA_ED25519_SHA512))
+              for i in range(3)]
+    payee = network.create_node("O=Payee, L=Paris, C=FR",
+                                key_pair=key(EDDSA_ED25519_SHA512))
+    notary_types = {"raft": ValidatingNotaryService,
+                    "sharded": ShardedNotaryService,
+                    "bft": ValidatingNotaryService}
+    notaries = {b: network.create_node(
+        f"O={b.capitalize()} Notary, L=Zurich, C=CH",
+        advertised_services=(ServiceInfo(cls.type_id),),
+        key_pair=key(EDDSA_ED25519_SHA512))
+        for b, cls in notary_types.items()}
+    network.start_nodes()
+    nodes = {**{f"bank {n}": b for n, b in zip(schemes, banks)},
+             **{f"payer {i}": p for i, p in enumerate(payers)},
+             "payee": payee,
+             **{f"{b} notary": n for b, n in notaries.items()}}
+    for node in network.nodes:
+        node.services.verifier_service = TpuTransactionVerifierService(
+            batcher=SignatureBatcher(device=dev, host_crossover=0,
+                                     interactive_latency_s=FLOW_INTERACTIVE_S))
+
+    # -- the commit logs: replicas as bus endpoints of their own -------------
+    bus = network.bus
+    raft_names = [f"raft{i}" for i in range(3)]
+    raft_maps = [DistributedImmutableMap() for _ in raft_names]
+    raft_providers = [RaftUniquenessProvider.build(
+        n, raft_names, bus.create_node(n), state_machine=raft_maps[i],
+        seed=seed + i, native=None) for i, n in enumerate(raft_names)]
+    raft_nodes = [p.raft for p in raft_providers]
+    if not all(isinstance(r, NativeRaftNode) for r in raft_nodes):
+        raise SystemExit("consensus: the Raft replicas are not on the "
+                         "native core")
+    shard_names = [[f"s{s}r{i}" for i in range(3)] for s in range(2)]
+    shard_maps = [[DistributedImmutableMap() for _ in g] for g in shard_names]
+    shard_providers = [[RaftUniquenessProvider.build(
+        n, g, bus.create_node(n), state_machine=shard_maps[s][i],
+        seed=seed + 31 * s + i, native=False) for i, n in enumerate(g)]
+        for s, g in enumerate(shard_names)]
+    bft_names = [f"bft{i}" for i in range(4)]
+    bft_maps = [DistributedImmutableMap() for _ in bft_names]
+    bft_replicas = [BFTReplica(n, bft_names, bus.create_node(n),
+                               bft_maps[i].apply,
+                               snapshot_fn=bft_maps[i].snapshot,
+                               restore_fn=bft_maps[i].restore)
+                    for i, n in enumerate(bft_names)]
+    bft_client = BFTClient("bft-client", bft_names,
+                           bus.create_node("bft-client"))
+    endpoints = (raft_names + [n for g in shard_names for n in g]
+                 + bft_names + ["bft-client"])
+    pump = ReplicaPump(bus, raft_nodes + [p.raft for g in shard_providers
+                                          for p in g],
+                       bft_replicas, endpoints)
+    providers = []
+    try:
+        out, launches = _consensus_run(
+            card, ctx, network, banks, payers, payee, notaries, nodes,
+            kernels, pump, raft_providers, raft_maps, shard_providers,
+            shard_maps, bft_maps, bft_client, endpoints, providers, t_phase)
+    finally:
+        pump.close()
+        for provider in providers:
+            provider.close()
+        for node in network.nodes:
+            node.services.verifier_service.shutdown()
+    out["seconds"]["phase"] = time.perf_counter() - t_phase
+    log(f"consensus: phase {out['seconds']['phase']:.1f} s")
+    return out, launches
+
+
+def _consensus_run(card, ctx, network, banks, payers, payee, notaries,
+                   nodes, kernels, pump, raft_providers, raft_maps,
+                   shard_providers, shard_maps, bft_maps, bft_client,
+                   endpoints, providers, t_phase):
+    """consensus_phase's body, inside the pump's and providers' lifetime."""
+    from corda_tpu_torch.consensus.bft import BFTUniquenessProvider
+    from corda_tpu_torch.consensus.raft import LEADER
+    from corda_tpu_torch.consensus.sharded_uniqueness import (
+        ShardedNotaryService, ShardedUniquenessProvider, shard_of)
+    from corda_tpu_torch.core.contracts import (Amount, PartyAndReference,
+                                                USD)
+    from corda_tpu_torch.core.crypto import SecureHash
+    from corda_tpu_torch.core.transactions import TransactionBuilder
+    from corda_tpu_torch.finance import (Cash, CashIssueFlow,
+                                         CashPaymentFlow, CashState)
+    from corda_tpu_torch.finance.cash import Move as CashMove
+    from corda_tpu_torch.flows.library import FinalityFlow
+    from corda_tpu_torch.node.notary import (UniquenessException,
+                                             ValidatingNotaryService)
+
+    def wait_for(label, cond, timeout=20.0):
+        deadline = time.monotonic() + timeout
+        while not cond():
+            if time.monotonic() > deadline:
+                raise SystemExit(f"consensus: {label} after {timeout} s")
+            time.sleep(0.01)
+
+    def leader_of(group):
+        leaders = [r for r in group if r.role == LEADER]
+        return leaders[0] if len(leaders) == 1 else None
+
+    raft_nodes = [p.raft for p in raft_providers]
+    wait_for("no Raft leader", lambda: leader_of(raft_nodes) is not None)
+    for s, grp in enumerate(shard_providers):
+        wait_for(f"no leader of shard {s}",
+                 lambda grp=grp: leader_of([p.raft for p in grp]) is not None)
+    raft_leader = leader_of(raft_nodes)
+    raft_entry = next(p for p in raft_providers if p.raft is not raft_leader)
+    raft_entry.committer_opts = {"attempt_timeout_s": CONSENSUS_ATTEMPT_S}
+    shard_entries = [next(p for p in grp if p.raft is leader_of(
+        [q.raft for q in grp])) for grp in shard_providers]
+    sharded = ShardedUniquenessProvider(
+        shard_entries, metrics=notaries["sharded"].services.monitoring)
+    bft = BFTUniquenessProvider(bft_client)
+    providers += [raft_entry, sharded]
+    uniqueness = {"raft": raft_entry, "sharded": sharded, "bft": bft}
+    notaries["raft"].install_notary(ValidatingNotaryService,
+                                    uniqueness=raft_entry)
+    notaries["sharded"].install_notary(ShardedNotaryService,
+                                       uniqueness=sharded)
+    notaries["bft"].install_notary(ValidatingNotaryService, uniqueness=bft)
+    notary_counts = {b: count_notary_launches(
+        n.services.verifier_service.batcher) for b, n in notaries.items()}
+
+    # -- issuance: every backend's coins, signed ahead on a pool -------------
+    issues, jobs = [], []
+    for backend, coins in CONSENSUS_COINS.items():
+        notary = notaries[backend]
+        for j, c in enumerate(coin_cents(coins)):
+            for b, bank in enumerate(banks):
+                payer = payers[(j + b) % len(payers)]
+                builder = TransactionBuilder(notary=notary.party)
+                Cash.generate_issue(builder, Amount(c, USD),
+                                    PartyAndReference(bank.party,
+                                                      CONSENSUS_REF),
+                                    payer.party.owning_key, notary.party)
+                wtx = builder.to_wire_transaction()
+                issues.append((backend, bank, payer, c, wtx.id))
+                jobs.append((bank.key_pair.private.scheme.scheme_number_id,
+                             bank.key_pair.private.encoded, wtx.id.bytes))
+    with ProcessPoolExecutor(max_workers=min(8, os.cpu_count() or 1),
+                             mp_context=ctx) as pool:
+        sigs = list(pool.map(_sign_job, jobs, chunksize=16))
+    memo = {(private, msg): sig for (_, private, msg), sig in zip(jobs, sigs)}
+    setup_s = time.perf_counter() - t_phase
+    t0 = time.perf_counter()
+    with presigned(memo) as signer:
+        fsms = [bank.start_flow(CashIssueFlow(
+            Amount(c, USD), CONSENSUS_REF, payer.party, notaries[b].party))
+            for b, bank, payer, c, _ in issues]
+        network.run_network(exclude=endpoints, idle_timeout=FLOWS_IDLE_S)
+    issue_s = time.perf_counter() - t0
+    if signer.hits != len(issues):
+        raise SystemExit(f"consensus: {signer.hits} of {len(issues)} "
+                         "issuance signatures were the presigned ones")
+    for (*_, tx_id), fsm in zip(issues, fsms):
+        if fsm.result_future.result(timeout=0).id != tx_id:
+            raise SystemExit("consensus: a CashIssueFlow returned another "
+                             "transaction")
+    issued_cents = sum(c for _, _, _, c, _ in issues)
+
+    def usd_held():
+        return sum(s.state.data.amount.quantity
+                   for node in payers + [payee]
+                   for s in node.services.vault.unconsumed_states(CashState))
+    if usd_held() != issued_cents:
+        raise SystemExit("consensus: the payers do not hold the issued cash")
+    log(f"consensus: issuance {len(issues)} CashIssueFlows in {issue_s:.2f} "
+        f"s ({len(issues) / issue_s:.1f} flows/s)")
+
+    # -- per backend: payments at once, checks, refusals ---------------------
+    results, launches_sum = {}, {n: 0 for n in kernels}
+    for backend in CONSENSUS_COINS:
+        notary = notaries[backend]
+        registry = notary.services.monitoring
+        # a payer spends only this backend's coins: the others are parked
+        parked = {}
+        for p in payers:
+            refs = [s.ref
+                    for s in p.services.vault.unconsumed_states(CashState)
+                    if s.state.notary != notary.party]
+            p.services.vault.soft_lock_reserve("parked", refs)
+            parked[p] = refs
+        per_payer = [len(p.services.vault.unconsumed_states(CashState))
+                     - len(parked[p]) for p in payers]
+        n_pay = sum(k // 2 for k in per_payer)
+        uniq_hist = registry.histogram("notary_uniqueness_seconds")
+        uniq_before = uniq_hist.count
+        if backend == "raft":
+            pump.kill_when(n_pay // 2, registry.meter("GroupCommit.Committed"),
+                           [p.raft for p in raft_providers], raft_entry.raft)
+        checked0 = count(notary.services.verifier_service.batcher.metrics
+                         .snapshot(), "SigBatcher.DeviceChecked")
+        for c in notary_counts[backend].values():
+            c[0] = c[1] = 0
+        for k in kernels.values():
+            k.launches = 0
+        t0 = time.perf_counter()
+        fsms = [p.start_flow(CashPaymentFlow(
+            Amount(CONSENSUS_PAY_CENTS, USD), payee.party))
+            for p, k in zip(payers, per_payer) for _ in range(k // 2)]
+        network.run_network(exclude=endpoints, idle_timeout=FLOWS_IDLE_S)
+        pay_s = time.perf_counter() - t0
+        launches = {n: k.launches for n, k in kernels.items()}
+        notary_launches = {n: list(c)
+                           for n, c in notary_counts[backend].items()}
+        for p in payers:
+            p.services.vault.soft_lock_release("parked")
+
+        # every payment notarised exactly once
+        paid = [f.result_future.result(timeout=0) for f in fsms]
+        if len({stx.id for stx in paid}) != n_pay or any(
+                notary.party.owning_key not in {s.by for s in stx.sigs}
+                for stx in paid):
+            raise SystemExit(f"consensus ({backend}): {len(paid)} payments "
+                             f"returned {len({stx.id for stx in paid})} "
+                             "notarised transactions")
+        if usd_held() != issued_cents:
+            raise SystemExit(f"consensus ({backend}): the USD held is not "
+                             "what was issued")
+        spends = {ref: stx.id for stx in paid for ref in stx.tx.inputs}
+        if len(spends) != sum(len(stx.tx.inputs) for stx in paid) or any(
+                len(stx.tx.inputs) < 2 for stx in paid):
+            raise SystemExit(f"consensus ({backend}): an input was spent "
+                             "twice, or a payment spent one coin")
+
+        # the live replicas' applied maps: equal, each input consumed once
+        if backend == "raft":
+            if pump.kill_error is not None:
+                raise SystemExit(f"consensus (raft): {pump.kill_error}")
+            if pump.killed is None:
+                raise SystemExit("consensus (raft): the leader was not "
+                                 "killed")
+            wait_for("no Raft leader after the kill",
+                     lambda: pump.next_leader is not None)
+            groups = [[m for r, m in zip(raft_providers, raft_maps)
+                       if r.raft.node_id not in pump.dead]]
+        elif backend == "sharded":
+            groups = shard_maps
+        else:
+            groups = [bft_maps]
+
+        def converged():
+            return all(m._map == g[0]._map and not m._reserved
+                       for g in groups for m in g)
+        wait_for(f"the {backend} replicas did not converge", converged)
+        applied = {ref: d.consuming_tx for g in groups
+                   for ref, d in g[0]._map.items()}
+        if applied != spends:
+            raise SystemExit(f"consensus ({backend}): the applied maps hold "
+                             f"{len(applied)} refs, the payments spent "
+                             f"{len(spends)}")
+
+        # the notary's batcher: B2, B3 and B4, 2 signatures a launch or more
+        for name, (n, items) in notary_launches.items():
+            if n == 0 or launches[name] == 0:
+                raise SystemExit(f"consensus ({backend}): {name} was "
+                                 "launched no time on the notary")
+            if items < 2 * n:
+                raise SystemExit(f"consensus ({backend}): {name} launched "
+                                 f"{n} times on the notary for {items} "
+                                 "signatures")
+        for who, node in nodes.items():
+            svc = node.services.verifier_service
+            snap = svc.batcher.metrics.snapshot()
+            if count(snap, "SigBatcher.HostRouted") != 0 or \
+                    count(snap, "SigBatcher.BatchFailure") != 0:
+                raise SystemExit(f"consensus ({backend}): the {who}'s "
+                                 "batcher routed to the host")
+            if any(b["state"] != "closed"
+                   for b in svc.batcher.breaker_status().values()):
+                raise SystemExit(f"consensus ({backend}): a breaker of the "
+                                 f"{who} is open")
+        snap = registry.snapshot()
+        checked = count(notary.services.verifier_service.batcher.metrics
+                        .snapshot(), "SigBatcher.DeviceChecked") - checked0
+        rec = {"payments": n_pay, "seconds": pay_s,
+               "payments_per_s": n_pay / pay_s,
+               "inputs": len(spends),
+               "uniqueness_commits": uniq_hist.count - uniq_before,
+               "uniqueness_p50_ms": 1e3 * uniq_hist.quantile(0.50),
+               "uniqueness_p99_ms": 1e3 * uniq_hist.quantile(0.99),
+               "notary_launches": {n: c[0] for n, c in
+                                   notary_launches.items()},
+               "notary_signatures": {n: c[1] for n, c in
+                                     notary_launches.items()},
+               "notary_signatures_per_launch": {
+                   n: c[1] / c[0] for n, c in notary_launches.items()},
+               "notary_device_checked": checked,
+               "launches_all_nodes": launches}
+        if backend in ("raft", "sharded"):
+            appends = count(snap, "GroupCommit.RaftAppends")
+            committed = count(snap, "GroupCommit.Committed")
+            batch = snap.get("ledger_commit_batch_size", {})
+            rec.update({"group_commit_appends": appends,
+                        "group_commit_committed": committed,
+                        "appends_per_committed_tx": appends / committed
+                        if committed else None,
+                        "batch_occupancy_mean": batch.get("mean")})
+            if not 0 < appends < committed:
+                raise SystemExit(f"consensus ({backend}): {appends} Raft "
+                                 f"appends for {committed} group-committed "
+                                 "transactions")
+        if backend == "raft":
+            rec.update({"killed_leader": pump.killed[0],
+                        "next_leader": pump.next_leader[0],
+                        "kill_to_next_leader_s": pump.next_leader[1],
+                        "native": True})
+        if backend == "sharded":
+            cross = sum(1 for stx in paid if len(
+                {shard_of(r, 2) for r in stx.tx.inputs}) > 1)
+            in_doubt = len(sharded.log)
+            rec.update({"cross_shard": cross,
+                        "cross_shard_committed": count(
+                            snap, "CrossShard.Committed"),
+                        "in_doubt": in_doubt})
+            if cross == 0 or in_doubt or count(
+                    snap, "CrossShard.Committed") != cross:
+                raise SystemExit(f"consensus (sharded): {cross} payments "
+                                 f"crossed shards, {in_doubt} in doubt")
+        for k in kernels:
+            launches_sum[k] += launches[k]
+
+        # refusals: replays straight at the provider ...
+        refused = 0
+        for stx in paid[:CONSENSUS_REPLAYS]:
+            fresh = SecureHash.sha256(b"replay:" + stx.id.bytes)
+            try:
+                uniqueness[backend].commit(list(stx.tx.inputs), fresh,
+                                           "O=Replay, L=Oslo, C=NO")
+            except UniquenessException as exc:
+                # a cross-shard replay is refused at its first shard, so
+                # its conflicts name that shard's inputs
+                if not exc.conflicts or not set(exc.conflicts) <= set(
+                        stx.tx.inputs) or any(
+                        d.consuming_tx != stx.id
+                        for d in exc.conflicts.values()):
+                    raise SystemExit(f"consensus ({backend}): a replay's "
+                                     "conflicts name another transaction")
+                refused += 1
+                continue
+            raise SystemExit(f"consensus ({backend}): a replay committed")
+        rec["replays_refused"] = refused
+        # ... and, on the Raft notary, a double spend through FinalityFlow
+        if backend == "raft":
+            spent_ref = paid[0].tx.inputs[0]
+            payer = next(p for p in payers if any(
+                s.ref == spent_ref for s in p.services.vault.query(
+                    CashState, status="consumed")))
+            spent = next(s for s in payer.services.vault.query(
+                CashState, status="consumed") if s.ref == spent_ref)
+            b = TransactionBuilder()
+            b.add_input_state(spent)
+            b.add_output_state(CashState(spent.state.data.amount,
+                                         payee.party.owning_key))
+            b.add_command(CashMove(), payer.party.owning_key)
+            double = payer.services.sign_initial_transaction(
+                b.to_wire_transaction())
+            fsm = payer.start_flow(FinalityFlow(double))
+            network.run_network(exclude=endpoints,
+                                idle_timeout=FLOWS_IDLE_S)
+            exc = fsm.result_future.exception(timeout=0)
+            if type(exc).__name__ != "NotaryException" or \
+                    not str(exc).startswith("Input states already consumed: "):
+                raise SystemExit(f"consensus (raft): the double spend ended "
+                                 f"with {exc!r}")
+            if any(n.services.storage.get_transaction(double.id)
+                   for n in nodes.values()):
+                raise SystemExit("consensus (raft): the double spend was "
+                                 "recorded")
+            rec["double_spend"] = [type(exc).__name__, str(exc)[:120]]
+        results[backend] = rec
+        log(f"consensus: {backend} {n_pay} payments in {pay_s:.2f} s "
+            f"({rec['payments_per_s']:.1f}/s), uniqueness p50 "
+            f"{rec['uniqueness_p50_ms']:.2f} ms p99 "
+            f"{rec['uniqueness_p99_ms']:.2f} ms, batch occupancy "
+            f"{rec.get('batch_occupancy_mean')}, appends a committed tx "
+            f"{rec.get('appends_per_committed_tx')}, cross-shard "
+            f"{rec.get('cross_shard', 0)}, kill to next leader "
+            f"{rec.get('kill_to_next_leader_s')} s; notary launches "
+            f"{rec['notary_launches']} for signatures "
+            f"{rec['notary_signatures']}")
+    return {"card": card, "coins": {b: 3 * c for b, c in
+                                    CONSENSUS_COINS.items()},
+            "pay_cents": CONSENSUS_PAY_CENTS,
+            "interactive_latency_s": FLOW_INTERACTIVE_S,
+            "issuance": {"flows": len(issues), "seconds": issue_s,
+                         "flows_per_s": len(issues) / issue_s},
+            "backends": results, "pump_loops": pump.loops,
+            "seconds": {"setup": setup_s, "issuance": issue_s,
+                        **{b: r["seconds"] for b, r in results.items()}}}, {
+        "ed25519_split_verify": launches_sum["ed25519"],
+        "secp256k1_hybrid_verify": launches_sum["secp256k1"],
+        "secp256r1_split_verify": launches_sum["secp256r1"]}
+
+
+# ---------------------------------------------------------------------------
 # B7 (Ed25519 Shamir and windowed ladders) and B10 (SIMM margin)
 # ---------------------------------------------------------------------------
 
@@ -3805,6 +4416,13 @@ def main() -> int:
     log(json.dumps({"path": "finance", **finance_out,
                     "kernel_launches": finance_launches}))
     t_phase = log_phase("finance", t_phase)
+
+    # -- phase 7f: consensus ------------------------------------------------
+    consensus_out, consensus_launches = consensus_phase(
+        card, dev, args.seed + 71, ctx)
+    log(json.dumps({"path": "consensus", **consensus_out,
+                    "kernel_launches": consensus_launches}))
+    t_phase = log_phase("consensus", t_phase)
 
     # -- phase 8: an earlier commit's B3, B5, B7 and B8 ----------------------
     if args.ab is not None:

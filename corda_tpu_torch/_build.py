@@ -1,10 +1,13 @@
 """Builds the port's native libraries from the repository's sources.
 
-Twelve shared libraries, all with a plain C interface loaded through ctypes:
+Thirteen shared libraries, all with a plain C interface loaded through
+ctypes:
 
-- ``scalarmath``       — ``native/scalarmath.cpp`` (host scalar prep) and
+- ``scalarmath``       — ``native/scalarmath.cpp`` (host scalar prep),
 - ``kvlog``            — ``native/kvlog.cpp`` (the key-value store's
-  append-only log engine, ``storage/kvstore.py``), each by g++;
+  append-only log engine, ``storage/kvstore.py``) and
+- ``raftcore``         — ``native/raftcore.cpp`` (the Raft protocol core
+  of ``consensus/raftcore.py``), each by g++;
 - ``ed25519_split``    — ``csrc/ed25519_split.cu`` (kernel B2, Ed25519
   split-k verify),
 - ``secp256k1_hybrid`` — ``csrc/secp256k1_hybrid.cu`` (kernel B3, secp256k1
@@ -129,6 +132,7 @@ def _host_target(source: str) -> dict:
 _TARGETS = {
     "scalarmath": _host_target("scalarmath.cpp"),
     "kvlog": _host_target("kvlog.cpp"),
+    "raftcore": _host_target("raftcore.cpp"),
     **{name: _nvcc_target(f"{name}.cu") for name in (
         "ed25519_split", "ed25519_shamir", "ed25519_windowed",
         "secp256k1_hybrid", "secp256r1_split", "weierstrass_shamir",

@@ -8,7 +8,7 @@ Reference parity (node/services/transactions/ + core NotaryFlow.kt:95-120):
 - `TimeWindowChecker` (services/TimeWindowChecker.kt)
 
 The Raft/BFT clustered backends plug in behind the same `UniquenessProvider`
-interface (the consensus package, SURVEY.md §7 phase 5; not ported yet).
+interface (the consensus package, SURVEY.md §7 phase 5).
 """
 from __future__ import annotations
 

@@ -32,9 +32,18 @@ Fault points in this package:
 point                  seam
 ====================== ======================================================
 ``net.send``           in-memory bus, before a message is enqueued
+``raft.append``        raft, before posting an AppendEntries (python + native)
 ``batcher.device_dispatch`` SignatureBatcher, inside the device-dispatch try
 ``oop.deliver``        verifier queue → worker request send
 ``oop.reply``          verifier worker → service reply send
+``raft.snapshot.persist`` RaftLogStore.save_snapshot, between the snapshot
+                       write and the covered-prefix delete (torn-persist seam)
+``raft.snapshot.install`` raft leader, before posting an InstallSnapshot
+``coordlog.compact``   CoordinatorLog GC, after the side-file fsync and
+                       before the atomic rename over the live log
+``shard2pc.prepare``   sharded notary, before each shard's reserve round
+``shard2pc.decide``    sharded notary, before the durable commit decision
+``shard2pc.finalize``  sharded notary, after the decision, before finalize
 ====================== ======================================================
 
 ``detail`` carries the call-site specifics (``"alice->bob"`` on sends,

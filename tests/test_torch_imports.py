@@ -24,8 +24,8 @@ def _modules():
         yield path, ".".join(parts)
 
 
-#: The packages of the flow framework and finance slices, and a module of
-#: each, that the scans below must reach.
+#: The packages of the flow framework, finance and consensus slices, and a
+#: module of each, that the scans below must reach.
 SLICE_MODULES = ("corda_tpu_torch.flows", "corda_tpu_torch.flows.api",
                  "corda_tpu_torch.flows.library",
                  "corda_tpu_torch.flows.confidential",
@@ -46,7 +46,16 @@ SLICE_MODULES = ("corda_tpu_torch.flows", "corda_tpu_torch.flows.api",
                  "corda_tpu_torch.core.contracts.sandbox",
                  "corda_tpu_torch.core.contracts.clauses",
                  "corda_tpu_torch.core.contracts.attachment_contract",
-                 "corda_tpu_torch.testing.ledger_dsl")
+                 "corda_tpu_torch.testing.ledger_dsl",
+                 "corda_tpu_torch.consensus",
+                 "corda_tpu_torch.consensus.raft",
+                 "corda_tpu_torch.consensus.raft_store",
+                 "corda_tpu_torch.consensus.raftcore",
+                 "corda_tpu_torch.consensus.provider",
+                 "corda_tpu_torch.consensus.raft_uniqueness",
+                 "corda_tpu_torch.consensus.commit_pipeline",
+                 "corda_tpu_torch.consensus.sharded_uniqueness",
+                 "corda_tpu_torch.consensus.bft")
 
 
 def test_the_scans_reach_the_flow_framework_packages():

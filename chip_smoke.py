@@ -11,7 +11,9 @@ flow framework: flows on a MockNetwork verifying through the card, and
 the finance CorDapp: a delivery-versus-payment trade whose cash history
 the seller and a validating notary resolve on the card, and consensus:
 validating notaries on replicated commit logs (Raft on its native core,
-a sharded notary, BFT) notarising payments they verify on the card.
+a sharded notary, BFT) notarising payments they verify on the card, and
+the ledger scenario harness at its measured shape, with its commit path
+attributed stage by stage.
 
     python3 chip_smoke.py [--seed N] [--only-kernels NAMES] [--ab PARENT]
 
@@ -241,6 +243,32 @@ Phases (any failure exits non-zero; nothing is caught):
              committed transaction, cross-shard payments, the seconds from
              the leader's kill to the next leader, and each notary's
              launches against its signatures.
+7g. ledger — observability.ledger_harness.run_ledger_scenario at the
+             reference's measured shape, LedgerScenarioConfig.full(chaos=
+             True), unshrunk: 24 parties, 720 issuances, payments and
+             commercial-paper settlements offered open loop at 120 tx/s, 6
+             coins a party, 4 flows in flight a node, a validating notary
+             on one 3-replica Raft group (snapshots every 16 entries,
+             durable replica stores) under the partition, replica-restart,
+             leader-kill and append-drop windows. Its nodes and its one
+             shared TpuTransactionVerifierService run on the card
+             (device="cuda", the harness's default); through the harness's
+             own on_verifier seam the shared batcher takes every batch to
+             the card (host_crossover 0) at phase 7d's receiver deadline.
+             Exactly once, the replicas agree, the counters reconcile, work
+             committed, at least one stitched trace with every commit-path
+             span, the four chaos windows, the port's ledger schema and
+             critical-path gates pass (tools/benchguard: the schema checks
+             only; no floor of the reference's records is applied), B2
+             launched on the shared batcher (counts set to 0 just before
+             the run, read just after) and every signature took the card
+             (no host routing, no failed batch, every breaker closed, the
+             harness's threads all stopped). Prints committed and offered
+             tx/s, e2e percentiles, every ledger_stage_* percentile, the
+             critical-path blame and e2e fields with the slowest traces'
+             blocking chains, the Raft and group-commit fields, the chaos
+             windows with the faults they fired, and B2's launches and
+             signatures a launch.
 8. ab      — only with --ab PARENT (a directory holding an earlier commit's
              corda_tpu_torch/csrc, e.g. unpacked by git archive): that
              commit's B3, B5, both B7 and both B8 kernels built beside this
@@ -538,6 +566,12 @@ CONSENSUS_REPLAYS = 8
 #: re-submitted after this long instead of waiting out the provider's
 #: 30 s timeout. The replicas' pump sleeps CONSENSUS_PUMP_S a loop.
 CONSENSUS_ATTEMPT_S, CONSENSUS_PUMP_S = 1.0, 0.002
+#: Ledger phase (7g): the chaos windows LedgerScenarioConfig.full(chaos=
+#: True) schedules (replica_restart because its replicas are durable).
+LEDGER_WINDOWS = ["partition_follower", "replica_restart", "leader_kill",
+                  "append_drop"]
+#: Seconds the threads the scenario started get to end after it returns.
+LEDGER_THREAD_GRACE_S = 10.0
 
 #: B6 (csrc/sha256.cu): 32-bit integer instructions (LOP3, SHF, IADD3) of a
 #: Merkle pair — a compression and the pad block's — and of one block of
@@ -3163,6 +3197,125 @@ def _consensus_run(card, ctx, network, banks, payers, payee, notaries,
         "secp256r1_split_verify": launches_sum["secp256r1"]}
 
 
+def ledger_phase(card, device: str, seed: int) -> dict:
+    """Phase 7g: the ledger scenario harness at its measured shape, its
+    nodes and shared verifier on ``device``, every signature batch sent
+    to the card. Prints the report's stage, critical-path, Raft and chaos
+    fields; returns the printed record."""
+    import collections
+    import threading
+    from corda_tpu_torch.observability import ledger_harness
+    from corda_tpu_torch.observability.ledger_harness import (
+        COMMIT_PATH_SPANS, LedgerScenarioConfig, run_ledger_scenario)
+    from corda_tpu_torch.ops import ed25519 as ed
+    from corda_tpu_torch.tools.benchguard import (ledger_critpath_violations,
+                                                  ledger_schema_violations)
+    t0 = time.perf_counter()
+    cfg = LedgerScenarioConfig.full(seed=seed, chaos=True)
+    cfg.device = device
+    shared = {}
+
+    def on_verifier(verifier):
+        batcher = verifier.batcher
+        batcher.host_crossover = 0
+        batcher.interactive_latency_s = FLOW_INTERACTIVE_S
+        shared["verifier"] = verifier
+        shared["counts"] = count_notary_launches(batcher)
+    cfg.on_verifier = on_verifier
+    build_ops, ops = ledger_harness._build_ops, []
+
+    def keep_ops(c):
+        ops.extend(build_ops(c))
+        return ops
+    threads_before = set(threading.enumerate())
+    ledger_harness._build_ops = keep_ops
+    try:
+        ed.verify_core_split.launches = 0
+        report = run_ledger_scenario(cfg)
+        b2_launches = ed.verify_core_split.launches
+    finally:
+        ledger_harness._build_ops = build_ops
+    seconds = time.perf_counter() - t0
+    grace = time.monotonic() + LEDGER_THREAD_GRACE_S
+    for t in set(threading.enumerate()) - threads_before:
+        t.join(timeout=max(0.0, grace - time.monotonic()))
+    left = [t.name for t in set(threading.enumerate()) - threads_before]
+    if left:
+        raise SystemExit(f"ledger: threads outlived the run: {left}")
+
+    for key in ("exactly_once_ok", "replicas_agree", "counter_invariant_ok"):
+        if report[key] is not True:
+            raise SystemExit(f"ledger: {key} is {report[key]}")
+    if report["ops_committed"] <= 0:
+        raise SystemExit("ledger: nothing committed")
+    names = {s["name"] for s in report["trace_sample"]}
+    if report["stitched_traces"] < 1 or not set(COMMIT_PATH_SPANS) <= names:
+        raise SystemExit(f"ledger: {report['stitched_traces']} stitched "
+                         f"traces, the sample lacks "
+                         f"{sorted(set(COMMIT_PATH_SPANS) - names)}")
+    kinds = [w["kind"] for w in report["chaos_windows"]]
+    if kinds != LEDGER_WINDOWS:
+        raise SystemExit(f"ledger: chaos windows {kinds}")
+    problems = ledger_schema_violations(report) + \
+        ledger_critpath_violations(report)
+    if problems:
+        raise SystemExit(f"ledger: the benchguard gates failed: {problems}")
+    counts = shared["counts"]
+    ed_launches, ed_sigs = counts["ed25519"]
+    if ed_launches == 0 or b2_launches == 0:
+        raise SystemExit("ledger: B2 was launched no time on the shared "
+                         "verifier")
+    verifier = shared["verifier"]
+    require_clean(verifier.batcher.metrics.snapshot(),
+                  verifier.batcher.breaker_status(),
+                  sum(sigs for _, sigs in counts.values()), "ledger")
+    if count(verifier.batcher.metrics.snapshot(), "SigBatcher.HostRouted"):
+        raise SystemExit("ledger: a signature took the host route")
+
+    out = {"card": card, "seconds": seconds}
+    out["summary"] = {k: report[k] for k in (
+        "mode", "parties", "ops_total", "ops_committed", "ops_failed",
+        "offered_tx_per_sec", "committed_tx_per_sec", "committed_tx_count",
+        "notarised_tx_count", "self_issue_tx_count", "e2e_ms_p50",
+        "e2e_ms_p90", "e2e_ms_p99", "duration_s", "stitched_traces",
+        "max_concurrent_flows_per_node", "slo_error_budget_pct",
+        "host_cpus")}
+    out["summary"].update({k: v for k, v in report.items()
+                           if k.startswith(("e2e_ms_", "flow_ms_"))})
+    out["summary"]["ops_failed_by_error"] = [
+        [kind, err, n] for (kind, err), n in collections.Counter(
+            (o.kind, (o.error or "")[:80]) for o in ops if not o.ok
+        ).most_common()]
+    out["stages"] = {k: v for k, v in report.items()
+                     if k.startswith("ledger_stage_")}
+    out["critpath"] = {k: v for k, v in report.items()
+                       if k.startswith("ledger_critpath_")}
+    out["raft"] = {k: v for k, v in report.items()
+                   if k.startswith(("ledger_raft_", "group_commit_",
+                                    "commit_batch_", "ledger_commit_"))
+                   or k in ("raft_appends_per_committed_tx",
+                            "notary_uniqueness_p99_ms")}
+    out["chaos"] = report["chaos_windows"]
+    out["verifier"] = {
+        "b2_launches": b2_launches, "ed25519_batches": ed_launches,
+        "ed25519_signatures": ed_sigs,
+        "signatures_per_launch": ed_sigs / ed_launches,
+        "ecdsa_batches": {n: c[0] for n, c in counts.items()
+                          if n != "ed25519"},
+        "interactive_latency_s": FLOW_INTERACTIVE_S}
+    for part in ("summary", "stages", "critpath", "raft", "verifier"):
+        log(json.dumps({"path": f"ledger_{part}", "card": card,
+                        **out[part]}))
+    log(json.dumps({"path": "ledger_chaos", "card": card,
+                    "windows": out["chaos"]}))
+    log(f"ledger: {report['ops_committed']} of {report['ops_total']} ops "
+        f"in {report['duration_s']} s ({report['committed_tx_per_sec']} "
+        f"tx/s committed of {report['offered_tx_per_sec']} offered), e2e "
+        f"p99 {report['e2e_ms_p99']} ms; B2 {b2_launches} launches for "
+        f"{ed_sigs} signatures; phase {seconds:.1f} s")
+    return out
+
+
 # ---------------------------------------------------------------------------
 # B7 (Ed25519 Shamir and windowed ladders) and B10 (SIMM margin)
 # ---------------------------------------------------------------------------
@@ -4423,6 +4576,10 @@ def main() -> int:
     log(json.dumps({"path": "consensus", **consensus_out,
                     "kernel_launches": consensus_launches}))
     t_phase = log_phase("consensus", t_phase)
+
+    # -- phase 7g: the ledger scenario ----------------------------------------
+    ledger_phase(card, "cuda", args.seed + 71)
+    t_phase = log_phase("ledger", t_phase)
 
     # -- phase 8: an earlier commit's B3, B5, B7 and B8 ----------------------
     if args.ab is not None:

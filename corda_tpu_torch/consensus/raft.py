@@ -263,6 +263,7 @@ class RaftNode:
         self._leader_since = None        # (perf_t, epoch_t) while LEADER
         self._leader_tenure_last_s = 0.0
         self._leader_tenure_total_s = 0.0
+        self._stopped = False
         self._registration = messaging.add_message_handler(
             TopicSession(TOPIC_RAFT), self._on_message)
 
@@ -271,7 +272,11 @@ class RaftNode:
 
     def stop(self) -> None:
         """Detach from the transport (restart/teardown path: a revived
-        replica re-registers on the same endpoint)."""
+        replica re-registers on the same endpoint). A delivery already in
+        flight on another thread when this runs is dropped, not applied:
+        the caller may close the replica's storage next."""
+        with self._lock:
+            self._stopped = True
         self.messaging.remove_message_handler(self._registration)
 
     # -- timers --------------------------------------------------------------
@@ -534,6 +539,8 @@ class RaftNode:
     def _on_message(self, msg) -> None:
         m = deserialize(msg.data)
         with self._lock:
+            if self._stopped:
+                return
             self._on_message_locked(m)
 
     def _on_message_locked(self, m) -> None:

@@ -490,9 +490,8 @@ class ShardedUniquenessProvider(UniquenessProvider):
             fault_point("shard2pc.finalize", detail=detail)
             conflicts: dict = {}
             for s in order:
-                out = self._round(
-                    s, ("finalize_all", (tx_id, list(by_shard[s]), caller)),
-                    trace_ctx, "finalize", len(by_shard[s]))
+                out = self._finalize(s, tx_id, by_shard[s], caller,
+                                     trace_ctx)
                 if out.get("committed"):
                     # dedicated cross-shard per-shard meter: the fast-path
                     # GroupCommit.Committed{shard=} counts must keep summing
@@ -523,6 +522,25 @@ class ShardedUniquenessProvider(UniquenessProvider):
             if not decided_commit:
                 self._abort(tx_id, by_shard)
             raise
+
+    #: Finalize rounds a coordinator gives a transaction it decided to
+    #: commit before it leaves it in doubt. The decision is durable and
+    #: finalize_all idempotent, so a round that timed out (an append lost
+    #: in a partition or drop window) is submitted again: in doubt, the
+    #: transaction would hold its reservations until recover_in_doubt()
+    #: while its client, told the commit failed, spends the same states
+    #: again and parks behind those reservations.
+    FINALIZE_ROUNDS = 3
+
+    def _finalize(self, shard: int, tx_id, refs, caller: str, trace_ctx):
+        for left in range(self.FINALIZE_ROUNDS - 1, -1, -1):
+            try:
+                return self._round(
+                    shard, ("finalize_all", (tx_id, list(refs), caller)),
+                    trace_ctx, "finalize", len(refs))
+            except TimeoutError:
+                if not left:
+                    raise
 
     def _abort(self, tx_id, by_shard: dict) -> None:
         self.log.decide(tx_id, "abort")

@@ -14,9 +14,15 @@
   (``csrc/secp256r1_split.cu``), windowed (``csrc/weierstrass_windowed.cu``),
   Shamir (``csrc/weierstrass_shamir.cu``) and GLV
   (``csrc/secp256k1_glv.cu``), over the shared point formulas of
-  ``csrc/curve_k1_pair.cuh`` and ``curve_p256_pair.cuh`` (``curve_k1.cuh``
-  for GLV): host preps, G tables, plain versions, CUDA kernel wrappers and
-  the batch entry points
+  ``csrc/curve_k1_pair.cuh`` and ``curve_p256_pair.cuh`` (GLV calls
+  ``curve_k1_pair.cuh`` directly): host preps, G tables, plain versions,
+  CUDA kernel wrappers and the batch entry points
+- sha256.py     — batched SHA-256, Merkle levels and roots: the plain
+  PyTorch version and the CUDA kernel wrapper (``csrc/sha256.cu``);
+  imported with the package, as in the reference
 
 Importing this package builds nothing and touches no device.
 """
+from . import sha256  # noqa: F401
+
+__all__ = ["sha256"]

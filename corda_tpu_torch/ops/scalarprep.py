@@ -72,6 +72,14 @@ def _bind(lib) -> None:
         _U8P, _U8P, _U64P]
     lib.sm_r1_halfgcd.restype = ctypes.c_int
     lib.sm_r1_halfgcd.argtypes = [_U64P, _U8P, _U64P, _U64P]
+    lib.sm_mulmod.restype = ctypes.c_int
+    lib.sm_mulmod.argtypes = [ctypes.c_int, _U64P, _U64P, _U64P]
+    lib.sm_mod512.restype = ctypes.c_int
+    lib.sm_mod512.argtypes = [ctypes.c_int, _U64P, _U64P]
+    lib.sm_glv.restype = ctypes.c_int
+    lib.sm_glv.argtypes = [_U64P, _U8P, _U64P, _U64P]
+    lib.sm_r1p_mulfast.restype = ctypes.c_int
+    lib.sm_r1p_mulfast.argtypes = [_U64P, _U64P, _U64P]
 
 
 def _lib():
@@ -100,6 +108,10 @@ def _lib():
                 lib = cand
         _STATE["lib"] = lib
         return lib
+
+
+#: Modulus ids of the test seams (as in scalarmath.cpp).
+MOD_K1_N, MOD_K1_P, MOD_R1_N, MOD_R1_P, MOD_ED_L, MOD_ED_P = range(6)
 
 
 def available() -> bool:
@@ -331,3 +343,51 @@ def r1_halfgcd(k: int) -> tuple[bool, int, int] | None:
         return None
     return (bool(neg1[0]), int.from_bytes(v1.tobytes(), "little"),
             int.from_bytes(v2.tobytes(), "little"))
+
+
+# ---------------------------------------------------------------------------
+# Test seams: single values through the library's scalar layer
+# ---------------------------------------------------------------------------
+
+def mulmod(mod_id: int, a: int, b: int) -> int:
+    """a*b mod the modulus ``mod_id`` (MOD_*) by the library's Barrett
+    reduction."""
+    r = np.zeros((1, 4), dtype=np.uint64)
+    rc = _native().sm_mulmod(mod_id, ints_to_words([a]), ints_to_words([b]),
+                             r)
+    if rc != 0:
+        raise RuntimeError(f"sm_mulmod failed: {rc}")
+    return int.from_bytes(r.tobytes(), "little")
+
+
+def mod512(mod_id: int, x: int) -> int:
+    """A 512-bit ``x`` reduced mod the modulus ``mod_id``."""
+    r = np.zeros((1, 4), dtype=np.uint64)
+    rc = _native().sm_mod512(mod_id, ints_to_words([x], nwords=8), r)
+    if rc != 0:
+        raise RuntimeError(f"sm_mod512 failed: {rc}")
+    return int.from_bytes(r.tobytes(), "little")
+
+
+def glv(k: int) -> tuple[int, int]:
+    """secp256k1's GLV split of ``k``: (k1, k2), signed, with
+    k ≡ k1 + k2·λ (mod n)."""
+    negs = np.zeros(2, dtype=np.uint8)
+    a1 = np.zeros(2, dtype=np.uint64)
+    a2 = np.zeros(2, dtype=np.uint64)
+    rc = _native().sm_glv(ints_to_words([k]), negs, a1, a2)
+    if rc != 0:
+        raise RuntimeError(f"sm_glv failed: {rc}")
+    k1 = int.from_bytes(a1.tobytes(), "little")
+    k2 = int.from_bytes(a2.tobytes(), "little")
+    return (-k1 if negs[0] else k1), (-k2 if negs[1] else k2)
+
+
+def r1p_mulfast(a: int, b: int) -> int:
+    """a*b mod P-256's prime by the Solinas reduction (the field product
+    of the [v2]R ladder in ``sm_r1_prep_hg``)."""
+    r = np.zeros((1, 4), dtype=np.uint64)
+    rc = _native().sm_r1p_mulfast(ints_to_words([a]), ints_to_words([b]), r)
+    if rc != 0:
+        raise RuntimeError(f"sm_r1p_mulfast failed: {rc}")
+    return int.from_bytes(r.tobytes(), "little")

@@ -152,3 +152,9 @@ def get_staging_pool() -> StagingPool:
                 _POOL = StagingPool()
     return _POOL
 
+
+def set_staging_pool(pool: StagingPool) -> None:
+    """Install ``pool`` as the process staging pool (tests swap it)."""
+    global _POOL
+    with _POOL_LOCK:
+        _POOL = pool

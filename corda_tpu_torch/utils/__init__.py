@@ -1,0 +1,1 @@
+from .metrics import MetricRegistry  # noqa: F401

@@ -8,14 +8,9 @@ fault injector on the case's seed, and the port's replicas must take the
 reference's course row for row (roles, terms, leaders, commit indexes,
 logs, applied entries, maps, compaction points), restarts and
 InstallSnapshot catch-ups included. The coordinator-log GC case compares
-the logs' in-doubt sets and sizes.
-
-The consensus observatory (``observability/consensus_obs.py``) is not in
-the port yet: for the election-episode case the reference's module stands
-in under the port's name, its ``raft_report`` reading the port's replicas
-through their ``stats()``."""
-import sys
-
+the logs' in-doubt sets and sizes. The election-episode case reads each
+package's replicas through its own consensus observatory
+(``observability/consensus_obs.py``'s ``raft_report``)."""
 import pytest
 
 from test_torch_finance import reference_cases
@@ -27,10 +22,5 @@ pytestmark = pytest.mark.chaos
 @pytest.mark.parametrize("name,attr,params",
                          reference_cases("test_chaos_raft")
                          + reference_cases("test_chaos_snapshot"))
-def test_chaos_case_matches_reference(name, attr, params, monkeypatch,
-                                      tmp_path):
-    from corda_tpu.observability import consensus_obs
-    monkeypatch.setitem(sys.modules,
-                        "corda_tpu_torch.observability.consensus_obs",
-                        consensus_obs)
+def test_chaos_case_matches_reference(name, attr, params, tmp_path):
     run_twin(name, attr, params, tmp_path)

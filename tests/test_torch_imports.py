@@ -24,8 +24,8 @@ def _modules():
         yield path, ".".join(parts)
 
 
-#: The packages of the flow framework, finance and consensus slices, and a
-#: module of each, that the scans below must reach.
+#: The packages of the flow framework, finance, consensus and ledger
+#: harness slices, and a module of each, that the scans below must reach.
 SLICE_MODULES = ("corda_tpu_torch.flows", "corda_tpu_torch.flows.api",
                  "corda_tpu_torch.flows.library",
                  "corda_tpu_torch.flows.confidential",
@@ -55,7 +55,19 @@ SLICE_MODULES = ("corda_tpu_torch.flows", "corda_tpu_torch.flows.api",
                  "corda_tpu_torch.consensus.raft_uniqueness",
                  "corda_tpu_torch.consensus.commit_pipeline",
                  "corda_tpu_torch.consensus.sharded_uniqueness",
-                 "corda_tpu_torch.consensus.bft")
+                 "corda_tpu_torch.consensus.bft",
+                 "corda_tpu_torch.observability.stages",
+                 "corda_tpu_torch.observability.timeseries",
+                 "corda_tpu_torch.observability.critpath",
+                 "corda_tpu_torch.observability.consensus_obs",
+                 "corda_tpu_torch.observability.ledger_harness",
+                 "corda_tpu_torch.observability.soak",
+                 "corda_tpu_torch.tools", "corda_tpu_torch.tools.benchguard",
+                 "corda_tpu_torch.tools.benchtrend",
+                 "corda_tpu_torch.tools.critpath",
+                 "corda_tpu_torch.tools.consensus_stat",
+                 "corda_tpu_torch.tools.fleetstat",
+                 "corda_tpu_torch.tools.scenario")
 
 
 def test_the_scans_reach_the_flow_framework_packages():

@@ -11,9 +11,13 @@ flow framework: flows on a MockNetwork verifying through the card, and
 the finance CorDapp: a delivery-versus-payment trade whose cash history
 the seller and a validating notary resolve on the card, and consensus:
 validating notaries on replicated commit logs (Raft on its native core,
-a sharded notary, BFT) notarising payments they verify on the card, and
-the ledger scenario harness at its measured shape, with its commit path
-attributed stage by stage.
+a sharded notary, BFT) notarising payments they verify on the card, the
+ledger scenario harness at its measured shape, with its commit path
+attributed stage by stage, and the node runtime over TCP: nodes built from
+their configuration paying each other through their RPC ops, a verifier
+worker in a process of its own, a node whose verifier shards over a mesh,
+and the samples (trader, IRS fixings through the scheduler, bank of corda,
+attachments, the multi-bank simulation), every signature on the card.
 
     python3 chip_smoke.py [--seed N] [--only-kernels NAMES] [--ab PARENT]
 
@@ -269,6 +273,45 @@ Phases (any failure exits non-zero; nothing is caught):
              blocking chains, the Raft and group-commit fields, the chaos
              windows with the faults they fired, and B2's launches and
              signatures a launch.
+7h. node   — the node runtime on the card. Three Nodes built from
+             NodeConfiguration(device="cuda") on 127.0.0.1, ephemeral
+             ports, TLS off, base directories in a temporary directory: a
+             network-map node that is also a validating notary, a bank and
+             a buyer, each with verifier_type="Tpu", each batcher set to
+             host_crossover 0 at phase 7d's receiver deadline. Through the
+             nodes' rpc_ops.start_flow_dynamic (on their node threads) the
+             bank issues 32 coins to the buyer, the buyer pays the bank 16
+             times and the bank the buyer 16 times: every flow returns, both
+             vaults hold the construction's cash, both parties recorded
+             every transaction, the notary's commit log is exactly the
+             payments' inputs, B2 launched on every node's batcher (counted
+             at its starts from before the flows to after), no host routing,
+             no failed batch, every breaker closed, health() ready with
+             device_tables_warm. A fourth node (verifier_type=
+             "OutOfProcess", verifier_workers=1) gets its verifier as a
+             process of its own, python -m corda_tpu_torch.verifier
+             --host-crossover 0 --stats-file ... on the card: after its
+             VERIFIER READY line and its attach (health() shows
+             fleet_workers_attached) the bank and that node pay each other
+             8 times a way; then SIGTERM: exit code 0, its stats file shows
+             signatures processed and B2 launched in the worker's process
+             (its standard error is printed if any of this fails). Then
+             graft_entry._dryrun_config_mesh_node(1): a Node with
+             mesh_devices=1 whose 2,048-signature burst rides the sharded
+             path (B9) onto B2 (SigBatcher.DeviceChecked >= 2048; sharded
+             batches and B2 launches counted). Then the samples, each node
+             of their MockNetworks verifying through the port's
+             TpuTransactionVerifierService on the card: trader_demo.
+             run_demo (paper and cash moved), the IRS demo's deal and two
+             fixings fired by both parties' NodeSchedulerService on a
+             virtual clock (rates 525 and 550 bp, each fixing signed by the
+             oracle, the calendar exhausted), bank_of_corda.run_demo (the
+             requester holds the issue), attachment_demo.run_demo (the
+             attachment arrives whole) and 8 steps of a 4-bank Simulation
+             (no flow failed, cash conserved): B2 launched in each, no
+             failed batch, every breaker closed. Prints the phase's
+             seconds, flows/s over TCP, signatures a launch per node, the
+             worker's verifies and launches, and the samples' launches.
 8. ab      — only with --ab PARENT (a directory holding an earlier commit's
              corda_tpu_torch/csrc, e.g. unpacked by git archive): that
              commit's B3, B5, both B7 and both B8 kernels built beside this
@@ -283,7 +326,9 @@ Phases (any failure exits non-zero; nothing is caught):
              turns (parent, change, change, parent).
 
 The line before the last is {"kernels": [...]}; the last line is
-{"ok": true, "device": {...}}. ``--only-kernels`` runs phases 1 and 2 only,
+{"ok": true, "device": {...}}. A whole run took 1,035 s of phases on an
+NVIDIA H100 80GB HBM3 at 700 W (the kernels phase 450 s of it), within
+its 1,200 s budget. ``--only-kernels`` runs phases 1 and 2 only,
 for the named kernels (and phase 8 with --ab, for those kernels), and
 prints neither. Without CUDA, or outside a checkout of the
 repository, it prints no result and exits non-zero.
@@ -572,6 +617,18 @@ LEDGER_WINDOWS = ["partition_follower", "replica_restart", "leader_kill",
                   "append_drop"]
 #: Seconds the threads the scenario started get to end after it returns.
 LEDGER_THREAD_GRACE_S = 10.0
+#: Node phase (7h): over loopback TCP the bank issues NODE_ISSUES coins
+#: (NODE_COIN_CENTS + i cents) to the buyer, the buyer pays the bank
+#: NODE_PAYMENTS times and the bank the buyer as often; the bank and the
+#: node whose verifier is the worker process pay each other
+#: NODE_WORKER_PAYMENTS times a way. A flow has NODE_FLOW_S to end, the
+#: worker process NODE_WORKER_READY_S to print its ready line (it loads the
+#: kernels built in phase 1 and holds them on known answers). The
+#: simulation runs SIM_BANKS banks for SIM_STEPS steps.
+NODE_ISSUES, NODE_PAYMENTS, NODE_WORKER_PAYMENTS = 32, 16, 8
+NODE_COIN_CENTS, NODE_BOC_DOLLARS = 1000_00, 500
+NODE_FLOW_S, NODE_WORKER_READY_S = 120.0, 180.0
+SIM_BANKS, SIM_STEPS = 4, 8
 
 #: B6 (csrc/sha256.cu): 32-bit integer instructions (LOP3, SHF, IADD3) of a
 #: Merkle pair — a compression and the pad block's — and of one block of
@@ -3317,6 +3374,463 @@ def ledger_phase(card, device: str, seed: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 7h: the node runtime over TCP, the worker process and the samples
+# ---------------------------------------------------------------------------
+
+def node_key_seed(seed: int, name: str) -> str:
+    """A node's identity seed (hex) from the run's seed and its name."""
+    import hashlib
+    return hashlib.sha256(f"{seed}:{name}".encode()).hexdigest()
+
+
+def node_config(tmp: str, seed: int, name: str, device: str, **kw):
+    """A node's configuration on ``device``: TLS off, a base directory
+    under ``tmp``, ephemeral port, the port's finance and dummy
+    cordapps."""
+    from corda_tpu_torch.node.node import NodeConfiguration
+    base = os.path.join(tmp, name.split(",")[0].split("=")[1])
+    return NodeConfiguration(
+        my_legal_name=name, base_directory=base, device=device,
+        key_seed_hex=node_key_seed(seed, name),
+        cordapps=["corda_tpu_torch.finance", "corda_tpu_torch.testing.dummy"],
+        **kw)
+
+
+def rpc_flow(node, flow: str, *args):
+    """Starts ``flow`` through the node's RPC ops, on its node thread."""
+    return node.executor.fetch_from(
+        lambda: node.rpc_ops.start_flow_dynamic(flow, *args)
+    ).result(timeout=NODE_FLOW_S)
+
+
+def flow_results(fsms) -> list:
+    return [fsm.result_future.result(timeout=NODE_FLOW_S) for fsm in fsms]
+
+
+def cash_of(node) -> int:
+    from corda_tpu_torch.finance import CashState
+    return sum(s.state.data.amount.quantity
+               for s in node.services.vault.unconsumed_states(CashState))
+
+
+def await_worker_ready(proc, timeout: float) -> str:
+    """The worker process's first line of standard output (its VERIFIER
+    READY line), read on a thread so a silent worker cannot hang the
+    phase."""
+    import queue
+    import threading
+    lines = queue.Queue()
+    threading.Thread(target=lambda: lines.put(proc.stdout.readline()),
+                     daemon=True).start()
+    try:
+        return lines.get(timeout=timeout)
+    except queue.Empty:
+        return ""
+
+
+def tcp_run(card, device: str, tmp: str, seed: int) -> tuple[dict, dict]:
+    """Three nodes on ``device`` over loopback TCP (a network-map node that
+    is also a validating notary, a bank, a buyer), flows started through
+    their RPC ops; then a fourth node whose verifier is a worker process
+    on ``device``. Returns the TCP run's record and the worker's."""
+    import signal
+    from corda_tpu_torch.core.contracts.amount import Amount, USD
+    from corda_tpu_torch.node.node import Node
+    from corda_tpu_torch.ops import ed25519 as ed
+    nodes, proc, err_path = [], None, os.path.join(tmp, "worker.stderr")
+    try:
+        t0 = time.perf_counter()
+        notary = Node(node_config(tmp, seed, "O=Map Notary, L=Zurich, C=CH",
+                                  device, notary="validating",
+                                  verifier_type="Tpu")).start()
+        nodes.append(notary)
+        addr = f"127.0.0.1:{notary.messaging.port}"
+        for name, vt in (("O=Bank, L=London, C=GB", "Tpu"),
+                         ("O=Buyer, L=Paris, C=FR", "Tpu"),
+                         ("O=Carol, L=Oslo, C=NO", "OutOfProcess")):
+            extra = ({"verifier_workers": 1} if vt == "OutOfProcess" else {})
+            nodes.append(Node(node_config(
+                tmp, seed, name, device,
+                network_map_name=str(notary.party.name),
+                network_map_address=addr, verifier_type=vt,
+                **extra)).start())
+        _, bank, buyer, carol = nodes
+        card_nodes = {"notary": notary, "bank": bank, "buyer": buyer}
+        counts = {}
+        for label, node in card_nodes.items():
+            batcher = node.services.verifier_service.batcher
+            if batcher.device.type != device:
+                raise SystemExit(f"node: {label}'s batcher is on "
+                                 f"{batcher.device}")
+            batcher.host_crossover = 0
+            batcher.interactive_latency_s = FLOW_INTERACTIVE_S
+            counts[label] = count_notary_launches(batcher)
+        deadline = time.monotonic() + 60
+        while any(len(n.services.network_map_cache.all_nodes()) < len(nodes)
+                  for n in nodes):
+            if time.monotonic() > deadline:
+                raise SystemExit("node: the network map did not spread")
+            time.sleep(0.05)
+        boot_s = time.perf_counter() - t0
+
+        # the bank issues to the buyer, the buyer pays the bank back and
+        # the bank pays the buyer
+        ed.verify_core_split.launches = 0
+        t0 = time.perf_counter()
+        issues = flow_results([rpc_flow(
+            bank, "CashIssueFlow", Amount(NODE_COIN_CENTS + i, USD), b"\x01",
+            buyer.party, notary.party) for i in range(NODE_ISSUES)])
+        payments = []
+        for payer, payee, cents in ((buyer, bank, 100_00),
+                                    (bank, buyer, 50_00)):
+            for i in range(NODE_PAYMENTS):
+                payments.extend(flow_results([rpc_flow(
+                    payer, "CashPaymentFlow", Amount(cents + i, USD),
+                    payee.party)]))
+        tcp_s = time.perf_counter() - t0
+        tcp_b2 = ed.verify_core_split.launches
+        tcp_counts = {label: list(c["ed25519"]) for label, c in counts.items()}
+        issued = sum(NODE_COIN_CENTS + i for i in range(NODE_ISSUES))
+        paid = [sum(c + i for i in range(NODE_PAYMENTS))
+                for c in (100_00, 50_00)]
+        want = {"buyer": issued - paid[0] + paid[1], "bank": paid[0] - paid[1]}
+        got = {"buyer": cash_of(buyer), "bank": cash_of(bank)}
+        if got != want:
+            raise SystemExit(f"node: vaults hold {got}, the construction "
+                             f"{want}")
+        for stx in issues + payments:
+            for node in (bank, buyer):
+                if node.services.storage.get_transaction(stx.id) is None:
+                    raise SystemExit(f"node: {node.party.name} did not "
+                                     f"record {stx.id}")
+        consumed = {ref for stx in payments for ref in stx.tx.inputs}
+        if set(notary.notary_service.uniqueness._consumed) != consumed:
+            raise SystemExit("node: the notary's commit log is not the "
+                             "payments' inputs")
+
+        # the worker as its own process, on the card, behind Carol's queue
+        stats = os.path.join(tmp, "worker-stats.json")
+        here = os.path.dirname(os.path.abspath(__file__))
+        env = dict(os.environ)
+        env["PYTHONPATH"] = os.pathsep.join(
+            p for p in (here, env.get("PYTHONPATH")) if p)
+        t0 = time.perf_counter()
+        with open(err_path, "w") as err:
+            proc = subprocess.Popen(
+                [sys.executable, "-m", "corda_tpu_torch.verifier",
+                 "--queue-address", f"127.0.0.1:{carol.messaging.port}",
+                 "--device", device, "--host-crossover", "0",
+                 "--stats-file", stats],
+                cwd=here, env=env, stdout=subprocess.PIPE, stderr=err,
+                text=True)
+        line = await_worker_ready(proc, NODE_WORKER_READY_S)
+        if not line.startswith("VERIFIER READY"):
+            raise SystemExit(f"node: the worker printed {line!r}")
+        worker_ready_s = time.perf_counter() - t0
+        svc = carol.services.verifier_service
+        deadline = time.monotonic() + 60
+        while svc.queue.worker_count < 1:
+            if time.monotonic() > deadline:
+                raise SystemExit("node: the worker did not attach")
+            time.sleep(0.05)
+        health = carol.rpc_ops.health()
+        attached = health["checks"]["fleet_workers_attached"]
+        if attached is not True or not health["ready"]:
+            raise SystemExit(f"node: Carol's health() with the worker "
+                             f"attached is {health}")
+        t0 = time.perf_counter()
+        worker_payments = []
+        for payer, payee, cents in ((bank, carol, 10_00), (carol, bank, 5_00)):
+            for i in range(NODE_WORKER_PAYMENTS):
+                worker_payments.extend(flow_results([rpc_flow(
+                    payer, "CashPaymentFlow", Amount(cents + i, USD),
+                    payee.party)]))
+        worker_s = time.perf_counter() - t0
+        carol_want = sum(10_00 - 5_00 for _ in range(NODE_WORKER_PAYMENTS))
+        if cash_of(carol) != carol_want:
+            raise SystemExit(f"node: Carol holds {cash_of(carol)}, the "
+                             f"construction {carol_want}")
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=60)
+        if rc != 0:
+            raise SystemExit(f"node: the worker exited {rc}")
+        with open(stats) as f:
+            report = json.load(f)
+        worker_b2 = report["launches"]["ed25519_split_verify"]
+        if report["processed_sig_count"] <= 0 or worker_b2 <= 0:
+            raise SystemExit(f"node: the worker verified "
+                             f"{report['processed_sig_count']} signatures in "
+                             f"{worker_b2} B2 launches")
+
+        per_node = {}
+        for label, node in card_nodes.items():
+            batcher = node.services.verifier_service.batcher
+            launches, sigs = counts[label]["ed25519"]
+            if launches == 0:
+                raise SystemExit(f"node: B2 was launched no time on "
+                                 f"{label}'s batcher")
+            snap = batcher.metrics.snapshot()
+            require_clean(snap, batcher.breaker_status(),
+                          sum(s for _, s in counts[label].values()),
+                          f"node {label}")
+            if count(snap, "SigBatcher.HostRouted"):
+                raise SystemExit(f"node: a signature took the host route "
+                                 f"on {label}")
+            health = node.rpc_ops.health()
+            if not health["ready"] or \
+                    health["checks"].get("device_tables_warm") is not True:
+                raise SystemExit(f"node: {label}'s health() is {health}")
+            tcp_launches, tcp_sigs = tcp_counts[label]
+            per_node[label] = {
+                "b2_launches": launches, "signatures": sigs,
+                "tcp_b2_launches": tcp_launches, "tcp_signatures": tcp_sigs,
+                "tcp_signatures_per_launch": tcp_sigs / max(1, tcp_launches)}
+        flows = len(issues) + len(payments)
+        tcp = {"card": card, "boot_s": boot_s, "flows": flows,
+               "issues": len(issues), "payments": len(payments),
+               "seconds": tcp_s, "flows_per_s": flows / tcp_s,
+               "b2_launches": tcp_b2, "nodes": per_node,
+               "notary_committed_states": len(consumed)}
+        worker = {"card": card, "ready_s": worker_ready_s,
+                  "payments": len(worker_payments), "seconds": worker_s,
+                  "verified_count": report["verified_count"],
+                  "processed_sig_count": report["processed_sig_count"],
+                  "b2_launches": worker_b2, "exit_code": rc,
+                  "fleet_workers_attached": attached,
+                  "device_checked": count(report["metrics"],
+                                          "SigBatcher.DeviceChecked")}
+        return tcp, worker
+    except BaseException:
+        if os.path.exists(err_path):
+            with open(err_path) as f:
+                log(f"node: the worker's standard error:\n{f.read()}")
+        raise
+    finally:
+        if proc is not None and proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        for node in reversed(nodes):
+            node.stop()
+            node.services.verifier_service.shutdown()
+
+
+def mesh_node_run(card, device: str) -> dict:
+    """The node built from configuration with mesh_devices=1
+    (graft_entry._dryrun_config_mesh_node): its 2,048-signature burst rides
+    the sharded path (B9) onto B2."""
+    from corda_tpu_torch import graft_entry, parallel
+    from corda_tpu_torch.ops import ed25519 as ed
+    calls = [0]
+    real = parallel.sharded_verify_batch_ed25519
+
+    def counted(mesh, items):
+        calls[0] += 1
+        return real(mesh, items)
+    ed.verify_core_split.launches = 0
+    parallel.sharded_verify_batch_ed25519 = counted
+    t0 = time.perf_counter()
+    try:
+        graft_entry._dryrun_config_mesh_node(1, device=device)
+    finally:
+        parallel.sharded_verify_batch_ed25519 = real
+    seconds = time.perf_counter() - t0
+    b2 = ed.verify_core_split.launches
+    if calls[0] == 0 or b2 == 0:
+        raise SystemExit(f"node: the mesh node made {calls[0]} sharded "
+                         f"batches, {b2} B2 launches")
+    return {"card": card, "burst": graft_entry.CONFIG_NODE_BURST,
+            "sharded_batches": calls[0], "b2_launches": b2,
+            "seconds": seconds}
+
+
+def card_network(device: str, registry: list):
+    """A MockNetwork whose nodes, once started, verify through the port's
+    TpuTransactionVerifierService on ``device`` at phase 7d's receiver
+    deadline, each batcher's launches counted in ``registry``."""
+    from corda_tpu_torch.testing import MockNetwork
+    from corda_tpu_torch.verifier import (SignatureBatcher,
+                                          TpuTransactionVerifierService)
+
+    class CardNetwork(MockNetwork):
+        def start_nodes(self):
+            super().start_nodes()
+            for node in self.nodes:
+                batcher = SignatureBatcher(
+                    device=device, host_crossover=0,
+                    interactive_latency_s=FLOW_INTERACTIVE_S)
+                node.services.verifier_service = \
+                    TpuTransactionVerifierService(batcher=batcher)
+                registry.append((node.services.verifier_service,
+                                 count_notary_launches(batcher)))
+    return CardNetwork
+
+
+def irs_fixings(network_cls, device: str) -> dict:
+    """The IRS demo's deal and its two fixings through both parties'
+    schedulers on a virtual clock (tests/test_irs_demo.py's network)."""
+    import datetime
+    from corda_tpu_torch.node.scheduler import NodeSchedulerService
+    from corda_tpu_torch.samples import irs_demo
+    from corda_tpu_torch.samples.rates_oracle import FixOf, RatesOracle
+    t0 = datetime.datetime(2026, 3, 1, tzinfo=datetime.timezone.utc)
+    network = network_cls(device=device)
+    notary = network.create_notary_node()
+    bank_a = network.create_node("O=Bank A, L=London, C=GB")
+    bank_b = network.create_node("O=Bank B, L=Paris, C=FR")
+    oracle_node = network.create_node("O=Rates Oracle, L=London, C=GB")
+    network.start_nodes()
+    RatesOracle(oracle_node.services, {
+        FixOf("LIBOR", "2026-03-10", "3M"): 525,
+        FixOf("LIBOR", "2026-06-10", "3M"): 550}).install(oracle_node.smm)
+    irs_demo.install_irs_demo(bank_a)
+    irs_demo.install_irs_demo(bank_b)
+    clock = {"t": t0}
+    schedulers = []
+    for node in (bank_a, bank_b):
+        sched = NodeSchedulerService(node.services, clock=lambda: clock["t"])
+        sched.start()
+        schedulers.append(sched)
+    swap = irs_demo.InterestRateSwapState(
+        fixed_leg=irs_demo.FixedLeg(bank_a.party, rate_bp=450),
+        floating_leg=irs_demo.FloatingLeg(bank_b.party, "LIBOR", "3M"),
+        notional=10_000_000, oracle=oracle_node.party,
+        fixing_dates=("2026-03-10", "2026-06-10"))
+    fsm = bank_a.start_flow(irs_demo.AgreeSwapFlow(swap, notary.party))
+    network.run_network()
+    fsm.result_future.result(timeout=NODE_FLOW_S)
+    fixings = []
+    for days in (15, 120):
+        clock["t"] = t0 + datetime.timedelta(days=days)
+        started = [fsm for s in schedulers for fsm in s.wake()]
+        network.run_network()
+        fixings += [stx for stx in flow_results(started) if stx is not None]
+    rates = [[f.value_bp for f in node.services.vault.unconsumed_states(
+        irs_demo.InterestRateSwapState)[0].state.data.applied_fixes]
+        for node in (bank_a, bank_b)]
+    if rates != [[525, 550], [525, 550]] or len(fixings) != 2:
+        raise SystemExit(f"node: IRS rates {rates}, {len(fixings)} fixings")
+    for stx in fixings:
+        if oracle_node.party.owning_key not in {s.by for s in stx.sigs}:
+            raise SystemExit("node: a fixing lacks the oracle's signature")
+    if any(s.next_deadline_micros() is not None for s in schedulers):
+        raise SystemExit("node: the IRS calendar is not exhausted")
+    return {"rates": rates[0], "fixings": len(fixings)}
+
+
+def samples_run(card, device: str, seed: int) -> dict:
+    """The samples on ``device``, every node verifying through it:
+    the trader demo, the IRS demo's two scheduler-fired fixings, the bank
+    of corda, the attachment demo and the simulation."""
+    from corda_tpu_torch.finance import CashState
+    from corda_tpu_torch.samples import (attachment_demo, bank_of_corda,
+                                         simulation, trader_demo)
+    out = {"card": card}
+    modules = (trader_demo, bank_of_corda, attachment_demo, simulation)
+    saved = [m.MockNetwork for m in modules]
+    registry: list = []
+    network_cls = card_network(device, registry)
+    for m in modules:
+        m.MockNetwork = network_cls
+    try:
+        def run(name, fn):
+            del registry[:]
+            t0 = time.perf_counter()
+            record = fn()
+            record["seconds"] = time.perf_counter() - t0
+            launches = sum(c["ed25519"][0] for _, c in registry)
+            sigs = sum(c["ed25519"][1] for _, c in registry)
+            if launches == 0:
+                raise SystemExit(f"node: B2 was launched no time in the "
+                                 f"{name} sample")
+            for svc, c in registry:
+                require_clean(svc.batcher.metrics.snapshot(),
+                              svc.batcher.breaker_status(),
+                              sum(s for _, s in c.values()), f"node {name}")
+            for svc, _ in registry:
+                svc.shutdown()
+            del registry[:]
+            record.update(b2_launches=launches, signatures=sigs)
+            out[name] = record
+
+        def trader():
+            res = trader_demo.run_demo(device=device)
+            paper = res["buyer_paper"]
+            seller = sum(s.state.data.amount.quantity
+                         for s in res["seller_cash"])
+            if len(paper) != 1 or paper[0].state.data.owner != \
+                    res["buyer"].party.owning_key or seller != 1000_00:
+                raise SystemExit("node: the trader demo's paper or cash "
+                                 "did not move")
+            return {"final": str(res["final"].id)}
+        run("trader_demo", trader)
+        run("irs_demo", lambda: irs_fixings(network_cls, device))
+
+        def bank():
+            res = bank_of_corda.run_demo(amount_dollars=NODE_BOC_DOLLARS,
+                                         device=device)
+            held = sum(s.state.data.amount.quantity for s in res[
+                "requester"].services.vault.unconsumed_states(CashState))
+            if held != NODE_BOC_DOLLARS * 100:
+                raise SystemExit(f"node: the requester holds {held}")
+            return {"issued_cents": held}
+        run("bank_of_corda", bank)
+
+        def attachment():
+            res = attachment_demo.run_demo(device=device)
+            if res["attachment"].data != res["document"] or \
+                    not res["attachment"].verify():
+                raise SystemExit("node: the attachment did not arrive whole")
+            return {"bytes": len(res["document"])}
+        run("attachment_demo", attachment)
+
+        def sim():
+            s = simulation.Simulation(n_banks=SIM_BANKS, seed=seed,
+                                      device=device).run(steps=SIM_STEPS)
+            failed = [e for e in s.events if e[1] == "flow-failed"]
+            if failed or s.total_cents() != SIM_BANKS * 1_000_00:
+                raise SystemExit(f"node: the simulation ended with "
+                                 f"{s.total_cents()} cents, failed {failed}")
+            return {"steps": SIM_STEPS, "events": len(s.events)}
+        run("simulation", sim)
+    finally:
+        for m, cls in zip(modules, saved):
+            m.MockNetwork = cls
+        for svc, _ in registry:
+            svc.shutdown()
+    return out
+
+
+def node_phase(card, device: str, seed: int) -> dict:
+    """Phase 7h: the node runtime over TCP with flows through its RPC ops,
+    the verifier worker as its own process, the node built from
+    configuration with a mesh, and the samples, all on ``device``."""
+    import shutil
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_node_")
+    try:
+        tcp, worker = tcp_run(card, device, tmp, seed)
+        log(json.dumps({"path": "node_tcp", **tcp}))
+        log(json.dumps({"path": "node_worker", **worker}))
+        mesh_node = mesh_node_run(card, device)
+        log(json.dumps({"path": "node_mesh", **mesh_node}))
+        samples = samples_run(card, device, seed)
+        log(json.dumps({"path": "node_samples", **samples}))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    seconds = time.perf_counter() - t0
+    log(f"node: {tcp['flows']} flows over TCP at {tcp['flows_per_s']:.2f} "
+        f"flows/s; signatures a launch "
+        + ", ".join(f"{k} {v['tcp_signatures_per_launch']:.2f}"
+                    for k, v in tcp["nodes"].items())
+        + f"; the worker process {worker['processed_sig_count']} signatures"
+        f" in {worker['b2_launches']} B2 launches; the mesh node "
+        f"{mesh_node['sharded_batches']} sharded batches, "
+        f"{mesh_node['b2_launches']} B2 launches; phase {seconds:.1f} s")
+    return {"tcp": tcp, "worker": worker, "mesh_node": mesh_node,
+            "samples": samples, "seconds": seconds}
+
+
+# ---------------------------------------------------------------------------
 # B7 (Ed25519 Shamir and windowed ladders) and B10 (SIMM margin)
 # ---------------------------------------------------------------------------
 
@@ -4580,6 +5094,10 @@ def main() -> int:
     # -- phase 7g: the ledger scenario ----------------------------------------
     ledger_phase(card, "cuda", args.seed + 71)
     t_phase = log_phase("ledger", t_phase)
+
+    # -- phase 7h: the node runtime over TCP and the samples -----------------
+    node_phase(card, "cuda", args.seed + 73)
+    t_phase = log_phase("node", t_phase)
 
     # -- phase 8: an earlier commit's B3, B5, B7 and B8 ----------------------
     if args.ab is not None:

@@ -102,7 +102,15 @@ class NotaryServiceFlow(FlowLogic):
 
     def __init__(self, peer, service):
         self.peer = peer
-        self.service = service
+        self.notary_service = service
+
+    @property
+    def service(self):
+        """The notary service that started this flow: the node's own, so a
+        checkpoint leaves it out (the codec writes no live service) and a
+        flow restored from one finds it on its hub."""
+        svc = self.__dict__.get("notary_service")
+        return svc if svc is not None else self.service_hub.notary_service
 
     def call(self):
         req = yield Receive(self.peer, NotarisationRequest)

@@ -2,13 +2,13 @@
 multi-device dry run.
 
 The twin of the repository's ``__graft_entry__.py`` (``entry``,
-``dryrun_multichip``, ``_dryrun_service_seam``, ``_dryrun_fleet``) on the
-port's devices: a mesh is a ``corda_tpu_torch.parallel.Mesh`` of
-``torch.device``s, by default the visible CUDA devices. Asking for more
-devices than the cards present gives shards of one card (one CUDA stream a
-shard), as the sharded path does. The reference's third stage,
-``_dryrun_config_mesh_node`` (a production node built from configuration
-with ``mesh_devices=N``), needs the port's node runtime and is not here.
+``dryrun_multichip``, ``_dryrun_service_seam``, ``_dryrun_config_mesh_node``,
+``_dryrun_fleet``) on the port's devices: a mesh is a
+``corda_tpu_torch.parallel.Mesh`` of ``torch.device``s, by default the
+visible CUDA devices. Asking for more devices than the cards present gives
+shards of one card (one CUDA stream a shard), as the sharded path does; the
+node built from configuration (``mesh_devices``) takes one shard a distinct
+device, as a node's configuration does.
 
     python -m corda_tpu_torch.graft_entry [N_DEVICES]
 
@@ -30,6 +30,9 @@ import numpy as np
 #: batch shapes to two rungs, 256 and 512).
 SERVICE_BATCH = 8192
 FLEET_GROUPS_PER_WORKER, FLEET_GROUP_SIZE = 16, 256
+#: The configuration-built node's signature burst (the reference's 2048:
+#: above the batcher's host crossover, so its own routing takes the mesh).
+CONFIG_NODE_BURST = 2048
 
 
 def _example_ed25519_items(n: int):
@@ -104,8 +107,56 @@ def dryrun_multichip(n_devices: int, devices=None) -> None:
     assert tuple(root.shape) == (8,)
 
     _dryrun_service_seam(mesh)
+    _dryrun_config_mesh_node(len(set(mesh.devices)),
+                             device=mesh.devices[0].type)
     # LAST stdout act: the fleet stage's one-line JSON aggregate
     _dryrun_fleet(n_devices, devices=list(mesh.devices))
+
+
+def _dryrun_config_mesh_node(n_devices: int, device: str = "cuda") -> None:
+    """Multi-device reachable from CONFIGURATION alone: boot a production
+    Node with ``verifier_type=Tpu, mesh_devices=N`` on ``device`` (no code
+    here constructs a mesh) and attest that a device-scale signature burst
+    shards over every device of the configuration-built mesh."""
+    import tempfile
+
+    from .core.crypto import ecmath
+    from .core.crypto.keys import PublicKey
+    from .core.crypto.schemes import EDDSA_ED25519_SHA512
+    from .node.node import Node, NodeConfiguration
+
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = NodeConfiguration(
+            my_legal_name="O=MeshNode, L=London, C=GB",
+            base_directory=tmp, verifier_type="Tpu",
+            mesh_devices=n_devices, device=device,
+            cordapps=["corda_tpu_torch.finance",
+                      "corda_tpu_torch.testing.dummy"])
+        node = Node(cfg).start()
+        try:
+            svc = node.services.verifier_service
+            assert svc.batcher.mesh is not None \
+                and svc.batcher.mesh.size == n_devices, \
+                "config did not build the mesh"
+            # device-scale burst (above the host crossover, so the default
+            # routing policy itself chooses the sharded device path)
+            rng = np.random.default_rng(11)
+            unique = []
+            for _ in range(16):
+                seed = rng.bytes(32)
+                pub = ecmath.ed25519_public_key(seed)
+                msg = rng.bytes(32)
+                sig = ecmath.ed25519_sign(seed, msg)
+                unique.append((PublicKey(EDDSA_ED25519_SHA512, pub), sig, msg))
+            burst = CONFIG_NODE_BURST
+            triples = (unique * (burst // len(unique) + 1))[:burst]
+            futures = svc.batcher.submit_many(triples)
+            assert all(f.result(timeout=600) for f in futures)
+            snap = svc.batcher.metrics.snapshot()
+            assert snap["SigBatcher.DeviceChecked"]["count"] >= burst, \
+                "burst did not ride the mesh-sharded device path"
+        finally:
+            node.stop()
 
 
 def _dryrun_fleet(n_devices: int, devices=None) -> None:

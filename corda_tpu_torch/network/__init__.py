@@ -1,6 +1,7 @@
-"""Messaging plane: the service interface, topics and the deterministic
-in-memory bus (own copies of corda_tpu.network's modules of the same
-names). The TCP plane is not ported yet.
+"""Messaging plane: the service interface, topics, the deterministic
+in-memory bus, the TCP plane with its mutual-TLS identity, the network map
+and the doorman's certificate enrolment (own copies of the reference
+package's network modules of the same names).
 
 Reference parity: MessagingService (node/services/messaging/Messaging.kt:1-230)
 and the deterministic InMemoryMessagingNetwork used by MockNetwork

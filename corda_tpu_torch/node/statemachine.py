@@ -940,8 +940,11 @@ class StateMachineManager:
     def _checkpoint(self, fsm: FlowStateMachine) -> None:
         """Atomic checkpoint at suspension (updateCheckpoint,
         StateMachineManager.kt:526-543)."""
+        # live handles, not state: the hub, the machine, and a notary
+        # flow's service (the node's own, found on the hub on restore)
         fields = {k: v for k, v in vars(fsm.flow).items()
-                  if k not in ("state_machine", "service_hub")}
+                  if k not in ("state_machine", "service_hub",
+                               "notary_service")}
         sessions = [SessionSnapshot(
             peer_name=str(s.peer.name), our_session_id=s.our_session_id,
             peer_session_id=s.peer_session_id, state=s.state,

@@ -1,3 +1,3 @@
-"""Sample applications (own copies of corda_tpu.samples' modules: the rates
-oracle's service and flows, and the SIMM valuation with its flows, so
-far)."""
+"""Sample applications (own copies of the reference package's samples: the
+rates oracle, the SIMM valuation, the trader, IRS, notary, attachment and
+bank-of-corda demos and the multi-bank simulation)."""

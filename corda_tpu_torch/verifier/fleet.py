@@ -127,6 +127,9 @@ class InProcessFleet:
         self.controller = None
         self._controller_tick_s = report_every_s
         self._report_every_s = report_every_s
+        # when the node last began draining its inbox right after the live
+        # workers reported: the instant the stale reaper judges silence at
+        self.heard_at = time.monotonic()
         self._stop = threading.Event()
         self._pump = threading.Thread(target=self._pump_loop, daemon=True,
                                       name="fleet-pump")
@@ -215,7 +218,8 @@ class InProcessFleet:
             queue_depth=self._queue_signal,
             spawn=self.add_worker,
             retire=self.retire_worker,
-            reap_stale=self.service.reap_stale_workers,
+            reap_stale=lambda: self.service.reap_stale_workers(
+                now=self.heard_at),
             breaker_open_count=self._open_breaker_count,
             ladder=batcher_ladder(self.batchers),
             config=config,
@@ -258,12 +262,19 @@ class InProcessFleet:
             # A cycle longer than the report interval held back every load
             # report (decoding one request on this thread runs the
             # pure-Python codec: about 11 ms for 256 signatures, a second
-            # for 32768). After such a cycle the live workers report at
-            # once and only the node's inbox is drained, so the tick below
-            # judges silence on fresh reports, not on the pump's own stall,
-            # while a crashed worker, which sends nothing, still goes stale.
+            # for 32768), and this thread may wait for the interpreter or a
+            # core for as long between any two of its steps. So before a
+            # tick, and after such a cycle, the live workers report at once
+            # and only the node's inbox is drained; the tick below judges
+            # silence at the instant that drain began (heard_at), when every
+            # live worker's report had reached the inbox, not on the pump's
+            # own stall, while a crashed worker, which sends nothing, still
+            # goes stale.
             stalled = now - t_cycle > self._report_every_s
-            if stalled or now - last_report >= self._report_every_s:
+            ctl = self.controller
+            tick = (ctl is not None
+                    and now - last_tick >= self._controller_tick_s)
+            if tick or stalled or now - last_report >= self._report_every_s:
                 last_report = now
                 with self._workers_lock:
                     workers = list(self.workers)
@@ -272,12 +283,13 @@ class InProcessFleet:
                         w.send_load_report()
                     except Exception:
                         pass   # a stopped worker mid-close; pump survives
-                if stalled:
+                if tick or stalled:
+                    heard = time.monotonic()
                     self.bus.run_network(exclude=[
                         n for n in self.bus.node_names if n != "node"])
+                    self.heard_at = heard
                     now = time.monotonic()
-            ctl = self.controller
-            if ctl is not None and now - last_tick >= self._controller_tick_s:
+            if tick:
                 last_tick = now
                 try:
                     ctl.tick()

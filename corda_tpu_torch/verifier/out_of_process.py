@@ -1114,7 +1114,7 @@ class VerifierWorker:
         under it), and _complete_device finishes + ships the lot."""
         while True:
             with self._backlog_lock:
-                if (not self._backlog
+                if (not self._alive or not self._backlog
                         or (self.max_inflight_groups is not None
                             and self._inflight_groups
                             >= self.max_inflight_groups)):
@@ -1152,7 +1152,16 @@ class VerifierWorker:
                 self._pool = ThreadPoolExecutor(
                     max_workers=self._pool_workers,
                     thread_name_prefix="verifier-worker")
-            self._pool.submit(self._complete_device, req, group_future, rt)
+            try:
+                self._pool.submit(self._complete_device, req, group_future,
+                                  rt)
+            except RuntimeError:
+                # stopped while this request was decoded on the pump
+                # thread: a crashed worker drops it (the node requeues
+                # what it charged us), and the pump survives
+                if self._alive:
+                    raise
+                return
 
     def _on_steal(self, steal: StealRequest) -> None:
         """Hand the backlog's TAIL back to the node (the feeder eats the

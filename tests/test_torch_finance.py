@@ -174,7 +174,7 @@ def run_on_both(name: str, attr: str, params: dict, monkeypatch,
 
 
 #: tests/test_finance_tail.py's finance and flow cases; its registration
-#: cases need network/registration.py, which the port does not have yet.
+#: cases run in tests/test_torch_node_tcp.py.
 FINANCE_TAIL = ("test_commodity_issue_and_move",
                 "test_commodity_conservation_enforced",
                 "test_commodity_issue_requires_issuer_signature",
@@ -183,10 +183,9 @@ FINANCE_TAIL = ("test_commodity_issue_and_move",
                 "test_manual_finality_broadcasts_only_named_recipients",
                 "test_fresh_keys_survive_restart",
                 "test_broadcast_reaches_later_recipients_past_a_dead_one")
-#: tests/test_audit.py's cases that need no node/rpc.py.
+#: tests/test_audit.py's cases outside node/rpc.py (whose case runs in
+#: tests/test_torch_node_tcp.py).
 AUDIT = ("test_flow_error_event", "test_capacity_bound")
-AUDIT_DROP = ("from corda_tpu.node.rpc import CordaRPCOps, "
-              "FlowPermissionException\n",)
 
 CASES = (reference_cases("test_cash")
          + reference_cases("test_commercial_paper")
@@ -215,7 +214,7 @@ def test_reference_case(name, attr, params, monkeypatch):
 
 @pytest.mark.parametrize("attr", AUDIT)
 def test_audit_case(attr, monkeypatch):
-    run_on_both("test_audit", attr, {}, monkeypatch, drop=AUDIT_DROP)
+    run_on_both("test_audit", attr, {}, monkeypatch)
 
 
 def test_a_case_that_differs_is_caught(monkeypatch):

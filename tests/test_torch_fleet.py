@@ -31,6 +31,7 @@ from corda_tpu.verifier import fleet as j_fleet
 from corda_tpu.verifier import out_of_process as j_oop
 from corda_tpu.verifier.batcher import SignatureBatcher as JBatcher
 from corda_tpu_torch.core.serialization import deserialize as t_deserialize
+from corda_tpu_torch.core.serialization import serialize as t_serialize
 from corda_tpu_torch.network.inmemory import \
     InMemoryMessagingNetwork as TBus
 from corda_tpu_torch.observability import Tracer as TTracer
@@ -431,14 +432,33 @@ def test_fleet_without_devices_raises_before_any_worker_attaches(monkeypatch):
 
 
 def test_graft_twin_prints_fleet_bench_last(capsys, monkeypatch):
-    """The graft twin at small sizes (the plain kernels run here)."""
+    """The graft twin at small sizes (the plain kernels run here). The
+    configuration-built node's burst of 8 takes the device route with its
+    batcher's crossover at 0 (the stage's 2048 clears the default 192)."""
     from corda_tpu_torch import graft_entry
     monkeypatch.setattr(graft_entry, "SERVICE_BATCH", 8)
     monkeypatch.setattr(graft_entry, "FLEET_GROUPS_PER_WORKER", 3)
     monkeypatch.setattr(graft_entry, "FLEET_GROUP_SIZE", 4)
+    monkeypatch.setattr(graft_entry, "CONFIG_NODE_BURST", 8)
+    real_init = TBatcher.__init__
+
+    def device_route(self, *a, **kw):
+        real_init(self, *a, **kw)
+        self.host_crossover = 0
+
+    monkeypatch.setattr(TBatcher, "__init__", device_route)
+    config_nodes = []
+    real_node = graft_entry._dryrun_config_mesh_node
+
+    def config_node(*a, **kw):
+        config_nodes.append((a, kw))
+        return real_node(*a, **kw)
+
+    monkeypatch.setattr(graft_entry, "_dryrun_config_mesh_node", config_node)
     fn, args = graft_entry.entry(device="cpu")
     assert fn(*args).tolist() == [True] * 8
     graft_entry.dryrun_multichip(2, devices=[torch.device("cpu")])
+    assert config_nodes == [((1,), {"device": "cpu"})]
     lines = [ln for ln in capsys.readouterr().out.splitlines()
              if ln.strip()]
     last = json.loads(lines[-1])
@@ -508,6 +528,48 @@ def test_pump_stall_is_not_a_dead_worker(monkeypatch):
     assert want["actions"] >= 1
 
 
+def test_a_worker_killed_while_it_admits_a_request_drops_it(monkeypatch):
+    """A crash that lands while the pump thread hands a request to the
+    worker's batcher (the kill shuts the completion pool before the group
+    is scheduled on it) drops that request, as a dead worker does, instead
+    of raising out of the delivery and ending the pump thread; no reply
+    leaves the dead worker."""
+    bus = TBus()
+    bus.create_node("node")
+    worker = t_oop.VerifierWorker(bus.create_node("w0"), "node",
+                                  use_device=False, device="cpu")
+    bus.run_network()
+    checks = tuple(t_fleet.make_sig_checks(4))
+
+    def request(vid):
+        return types.SimpleNamespace(data=t_serialize(t_oop.VerificationRequest(
+            vid, None, "node", signatures=checks)))
+
+    stopped = []
+    try:
+        worker._on_request(request(1))
+        deadline = time.monotonic() + 30
+        while worker.verified_count < 1:
+            assert time.monotonic() < deadline
+            time.sleep(0.01)
+        real = worker.batcher.submit_group
+
+        def killed_on_admission(*args, **kwargs):
+            group = real(*args, **kwargs)
+            worker.stop(announce=False)
+            stopped.append(True)
+            return group
+
+        monkeypatch.setattr(worker.batcher, "submit_group",
+                            killed_on_admission)
+        worker._on_request(request(2))
+        time.sleep(0.1)
+        assert stopped and worker.verified_count == 1
+    finally:
+        if not stopped:
+            worker.stop(announce=False)
+
+
 SATURATED_GROUPS = 12
 DELIVERY_HOLD_S = 0.015
 
@@ -536,7 +598,7 @@ def test_controller_acts_while_the_pump_is_saturated():
         return transfer
 
     fleet.bus.pump_receive = held_receive
-    cycles, ticks = [], []
+    cycles, ticks, tick_heard = [], [], []
     real_run = fleet.bus.run_network
 
     def timed_run(*args, **kwargs):
@@ -561,11 +623,33 @@ def test_controller_acts_while_the_pump_is_saturated():
         real_tick = ctl.tick
 
         def timed_tick(*args, **kwargs):
+            heard_at = fleet.heard_at
             actions = real_tick(*args, **kwargs)
             ticks.append((time.monotonic(), actions))
+            tick_heard.append(heard_at)
             return actions
 
         ctl.tick = timed_tick
+        # every sign of life the node takes from w0 (a load report or an
+        # acknowledged result), timed before and after it is recorded
+        heard = []
+        queue = fleet.service.queue
+        real_report, real_ack = queue._on_load_report, queue.acknowledge
+
+        def heard_report(report):
+            t0 = time.monotonic()
+            real_report(report)
+            if report.worker_address == "w0":
+                heard.append((t0, time.monotonic()))
+
+        def heard_ack(verification_id):
+            t0 = time.monotonic()
+            worker = real_ack(verification_id)
+            if worker == "w0":
+                heard.append((t0, time.monotonic()))
+            return worker
+
+        queue._on_load_report, queue.acknowledge = heard_report, heard_ack
         checks = t_fleet.make_sig_checks(256)
         assert fleet.verify_signatures(checks).result(timeout=60) is None
         futures = []
@@ -603,8 +687,16 @@ def test_controller_acts_while_the_pump_is_saturated():
                 if act["action"] == "stale_detach"]
     assert [w for _, w in detached] == ["w0"]
     assert snap["Fleet.StaleDetached"]["count"] == 1
+    # the reaper counts the horizon from w0's last sign of life, which may
+    # reach the node after the kill (a report already on the bus), to the
+    # instant the node began hearing its workers before the tick: the
+    # detaching tick ends more than the horizon after it, and no tick that
+    # heard once the horizon had run out ended before it
     horizon = stale_windows * 3 * report_s
-    longest = max(b - a for a, b in run)
-    assert detached[0][0] - t_kill <= horizon + longest + 2 * report_s
+    t_detach = detached[0][0]
+    last_lo, last_hi = max(h for h in heard if h[0] < t_detach)
+    assert t_detach - last_lo > horizon
+    assert not [t for h, (t, _) in zip(tick_heard, ticks)
+                if h > last_hi + horizon and t < t_detach]
     scale_ups = [t for t, act in actions if act["action"] == "scale_up"]
     assert scale_ups and scale_ups[0] < t_load_end

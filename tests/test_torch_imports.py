@@ -67,7 +67,22 @@ SLICE_MODULES = ("corda_tpu_torch.flows", "corda_tpu_torch.flows.api",
                  "corda_tpu_torch.tools.critpath",
                  "corda_tpu_torch.tools.consensus_stat",
                  "corda_tpu_torch.tools.fleetstat",
-                 "corda_tpu_torch.tools.scenario")
+                 "corda_tpu_torch.tools.scenario",
+                 "corda_tpu_torch.utils.progress",
+                 "corda_tpu_torch.utils.affinity",
+                 "corda_tpu_torch.node.scheduler",
+                 "corda_tpu_torch.node.node", "corda_tpu_torch.node.rpc",
+                 "corda_tpu_torch.node.__main__",
+                 "corda_tpu_torch.network.tcp", "corda_tpu_torch.network.tls",
+                 "corda_tpu_torch.network.netmap",
+                 "corda_tpu_torch.network.registration",
+                 "corda_tpu_torch.verifier.__main__",
+                 "corda_tpu_torch.samples.trader_demo",
+                 "corda_tpu_torch.samples.bank_of_corda",
+                 "corda_tpu_torch.samples.attachment_demo",
+                 "corda_tpu_torch.samples.simulation",
+                 "corda_tpu_torch.samples.irs_demo",
+                 "corda_tpu_torch.samples.notary_demo")
 
 
 def test_the_scans_reach_the_flow_framework_packages():

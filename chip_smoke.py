@@ -17,7 +17,9 @@ attributed stage by stage, and the node runtime over TCP: nodes built from
 their configuration paying each other through their RPC ops, a verifier
 worker in a process of its own, a node whose verifier shards over a mesh,
 and the samples (trader, IRS fixings through the scheduler, bank of corda,
-attachments, the multi-bank simulation), every signature on the card.
+attachments, the multi-bank simulation), and a cluster of node processes
+started by the port's process driver, driven through the RPC client, the
+load test, the web server and the shell, every signature on the card.
 
     python3 chip_smoke.py [--seed N] [--only-kernels NAMES] [--ab PARENT]
 
@@ -39,8 +41,9 @@ Phases (any failure exits non-zero; nothing is caught):
              adversarial batch of 4,096 items signed once (s >= L, R y >=
              p, undecodable keys and R among them), prepped once and tiled.
              Verdicts bit-identical and equal to the
-             construction; CUDA-event medians of both versions, the
-             card's least time for the same work, and each launch's lanes
+             construction; the kernel's CUDA-event median (the plain
+             version is held, not timed), the card's least time for the
+             same work, and each launch's lanes
              a signature and warps a multiprocessor (B2 and both B7
              kernels run lane pairs up to 16384 items, one lane above, and
              both B7 kernels are timed at 16384 too; B3, B4, B5 and both
@@ -49,8 +52,7 @@ Phases (any failure exits non-zero; nothing is caught):
              sizes 1, 31, 33, 4095 and 4097, and both B7 libraries with
              each lane variant forced at those sizes, their lane
              threshold +-1 and every bucket (both variants timed in turns
-             at the threshold). The plain versions are timed at the
-             buckets the kernels line reads. A freshly loaded signature
+             at the threshold). A freshly loaded signature
              library has also been held against its plain version on
              known answers (ops/known_answers.py).
              Then B10 (SIMM margin)
@@ -60,7 +62,8 @@ Phases (any failure exits non-zero; nothing is caught):
              float64 margin, and equal to itself on a second launch; its
              time on the card from a torch.profiler trace taken in a fresh
              process (retried in another fresh process when the trace holds
-             no kernel; failing after three), beside torch.sum(sens, 0).
+             no kernel; failing after three), beside torch.sum(sens, 0)
+             (the plain version held bit for bit, not timed).
              Then B6
              (SHA-256/Merkle):
              hash_pairs at 2^10, 2^14, 2^17 and 2^20 pairs, merkle_root on
@@ -312,6 +315,28 @@ Phases (any failure exits non-zero; nothing is caught):
              failed batch, every breaker closed. Prints the phase's
              seconds, flows/s over TCP, signatures a launch per node, the
              worker's verifies and launches, and the samples' launches.
+7i. driver — the process driver on the card. testing.driver.driver(tmp,
+             device="cuda") starts the network-map node, a simple notary
+             (start_notary_node) and two parties, Alice and Bob, with
+             verifier_type="Tpu" and host_crossover 0, each a process of
+             its own (python -m corda_tpu_torch.node --device cuda) over
+             loopback TCP that loads the kernels phase 1 built and holds
+             them on known answers (the two parties boot at once);
+             wait_for_network(4). Then
+             tools.loadtest.run_driver_cluster_load over their RPC clients
+             (12 iterations of issuances and payments, Bob killed with
+             SIGKILL at the sixth and restarted from his base directory):
+             value conserved, at least 12 flows, Bob's new process answers
+             RPC. Then a NodeWebServer over a CordaRPCClient to each
+             party's process: /healthz, /readyz (200, ready), /metrics (a
+             corda_tpu_ family), /api/vault, /api/flows and /debug/profile,
+             whose ed25519.split entry must show B2 dispatched in each
+             party's process (Bob's restarted one). Then one shell command
+             through tools.shell against Alice's client, flow start
+             CashIssueFlow with typed named arguments: her balance moves by
+             the amount. Prints the processes' boot seconds, the load's
+             flows, flows/s and seconds, the kill-to-ready seconds, and
+             each party's B2 dispatches and signatures a launch.
 8. ab      — only with --ab PARENT (a directory holding an earlier commit's
              corda_tpu_torch/csrc, e.g. unpacked by git archive): that
              commit's B3, B5, both B7 and both B8 kernels built beside this
@@ -326,9 +351,9 @@ Phases (any failure exits non-zero; nothing is caught):
              turns (parent, change, change, parent).
 
 The line before the last is {"kernels": [...]}; the last line is
-{"ok": true, "device": {...}}. A whole run took 1,035 s of phases on an
-NVIDIA H100 80GB HBM3 at 700 W (the kernels phase 450 s of it), within
-its 1,200 s budget. ``--only-kernels`` runs phases 1 and 2 only,
+{"ok": true, "device": {...}}. Each phase prints its seconds; PERF.md §5
+gives a whole run's on an NVIDIA H100 80GB HBM3 at 700 W, which must end
+within its 1,200 s budget. ``--only-kernels`` runs phases 1 and 2 only,
 for the named kernels (and phase 8 with --ab, for those kernels), and
 prints neither. Without CUDA, or outside a checkout of the
 repository, it prints no result and exits non-zero.
@@ -346,7 +371,7 @@ import subprocess
 import sys
 import tempfile
 import time
-from concurrent.futures import ProcessPoolExecutor
+from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 
 #: Peak rates of one H100 SXM (NVIDIA data-sheet dense figures at the
 #: 700 W limit): 3.35 TB/s of HBM; 67 TFLOP/s float32 outside
@@ -544,8 +569,10 @@ ROW_BUCKETS = {lib: bucket for lib, bucket in PAIR_ROWS.values()
 #: signing is pure Python, ~0.1 s a signature, spread over a process pool),
 #: 4 bulk groups of 32768 and 10 interactive 1k groups; then 512 mixed
 #: three-signature transactions through verify_signed. 5 timed kernel runs
-#: per bucket (2 of the plain versions at 32768, 1 below: a plain call is
-#: launch-bound, 1-4 s at every bucket).
+#: per bucket. The plain versions run once a bucket, for the bit-for-bit
+#: hold, and are not timed: a plain call is launch-bound, 1-4 s at every
+#: bucket, and no check reads its time (the kernels line's ``plain_ms`` is
+#: null).
 SIGNERS, MESSAGES = 512, 2048
 BULK_GROUPS, INTERACTIVE_RUNS, SINGLES, RUNS = 8, 25, 20, 5
 EC_SIGNERS, EC_MESSAGES = 64, 256
@@ -629,6 +656,16 @@ NODE_ISSUES, NODE_PAYMENTS, NODE_WORKER_PAYMENTS = 32, 16, 8
 NODE_COIN_CENTS, NODE_BOC_DOLLARS = 1000_00, 500
 NODE_FLOW_S, NODE_WORKER_READY_S = 120.0, 180.0
 SIM_BANKS, SIM_STEPS = 4, 8
+#: Driver phase (7i): run_driver_cluster_load's own width (DRIVER_ITERATIONS)
+#: with the reference's kill and restart of the second party at
+#: DRIVER_KILL_AT; the shell issues DRIVER_SHELL_CENTS to Alice; a node
+#: process must print its READY line within DRIVER_STARTUP_S (it loads the
+#: kernels phase 1 built and holds them on known answers).
+DRIVER_ITERATIONS, DRIVER_KILL_AT, DRIVER_SHELL_CENTS = 12, 6, 4200
+DRIVER_STARTUP_S = 180.0
+#: The web server's routes phase 7i reads on each party.
+DRIVER_ROUTES = ("/healthz", "/readyz", "/metrics", "/api/vault",
+                 "/api/flows", "/debug/profile")
 
 #: B6 (csrc/sha256.cu): 32-bit integer instructions (LOP3, SHF, IADD3) of a
 #: Merkle pair — a compression and the pad block's — and of one block of
@@ -963,19 +1000,14 @@ def hold_kernel(name, kernel, plain, args, tables, bucket, final_fn, want):
 
 def compare_kernel(name, kernel, plain, args, tables, bucket, table_bytes,
                    final_fn, want, card):
-    """One bucket of phase 2: :func:`hold_kernel`, then both versions'
-    times."""
+    """One bucket of phase 2: :func:`hold_kernel`, then the kernel's time
+    (the plain version is held, not timed)."""
     k, p = hold_kernel(name, kernel, plain, args, tables, bucket, final_fn,
                        want)
     ms = time_cuda(lambda: kernel(*args, *tables), RUNS)
-    # the plain version is timed at the buckets the kernels line reads
-    plain_ms = (time_cuda(lambda: plain(*args, *tables),
-                          2 if bucket == 32768 else 1)
-                if bucket == 32768 or (name, bucket) in PAIR_ROWS.values()
-                else None)
     bms, by = bound_ms(name, bucket, table_bytes)
     err = int(abs(k.astype(int) - p.astype(int)).max())
-    row = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+    row = {"ms": ms, "plain_ms": None, "bound_ms": bms, "bound_by": by,
            "max_abs_err": err, "imad_per_sig": KERNELS[name]["imad"],
            **kernel_geometry(name, bucket)}
     log(json.dumps({"kernel": name, "bucket": bucket, "identical": True,
@@ -1666,10 +1698,11 @@ def _host_root(leaves: bytes) -> bytes:
 
 
 def compare_b6(label, shape, kernel, plain, arg, host_check, ops, nbytes,
-               card, plain_runs):
+               card):
     """One B6 shape: the kernel against its plain version on the same
     tensor (bit-identical words), ``host_check`` on the kernel's words
-    (hashlib on a random 256 lanes), and both versions' times. A B6 call
+    (hashlib on a random 256 lanes), and the kernel's time (the plain
+    version is held, not timed). A B6 call
     is tens of microseconds on the card, about what the Python wrapper
     takes to issue it, so its time is taken over B6_TIMED_CALLS calls
     issued back to back between the two events."""
@@ -1688,10 +1721,9 @@ def compare_b6(label, shape, kernel, plain, arg, host_check, ops, nbytes,
         for _ in range(B6_TIMED_CALLS):
             kernel(arg)
     ms = time_cuda(launches, RUNS) / B6_TIMED_CALLS
-    plain_ms = time_cuda(lambda: plain(arg), plain_runs)
     bms, by = sha_bound_ms(ops, nbytes)
     err = int(np.abs(k.astype(np.int64) - p.astype(np.int64)).max())
-    row = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+    row = {"ms": ms, "plain_ms": None, "bound_ms": bms, "bound_by": by,
            "max_abs_err": err}
     log(json.dumps({"kernel": label, "shape": shape, "identical": True,
                     "hashlib_sample_agrees": True, **row, "card": card}))
@@ -1725,7 +1757,7 @@ def b6_kernel_phase(dev, card, seed: int) -> dict:
                                      "from hashlib")
         rows[("hash_pairs", n)] = compare_b6(
             "sha256_hash_pairs", n, sha.hash_pairs, sha.hash_pairs_plain, arg,
-            check, n * SHA_PAIR_OPS, n * 96, card, 3)
+            check, n * SHA_PAIR_OPS, n * 96, card)
     for trees, leaves in ROOT_SHAPES:
         arg = words(trees, leaves, 8) if trees > 1 else words(leaves, 8)
         raw = sha.words_to_numpy(arg).astype(">u4").tobytes()
@@ -1742,7 +1774,7 @@ def b6_kernel_phase(dev, card, seed: int) -> dict:
             "sha256_merkle_root", [trees, leaves], sha.merkle_root,
             sha.merkle_root_plain, arg, check,
             trees * (leaves - 1) * SHA_PAIR_OPS, trees * (leaves + 1) * 32,
-            card, 2 if leaves > 16 else 3)
+            card)
     for n, n_blocks in BLOCK_SHAPES:
         lo, hi = 64 * (n_blocks - 1), 64 * n_blocks - 9
         msgs = [rng.bytes(int(rng.integers(lo, hi + 1))) for _ in range(n)]
@@ -1758,7 +1790,7 @@ def b6_kernel_phase(dev, card, seed: int) -> dict:
         rows[("sha256_blocks", (n, n_blocks))] = compare_b6(
             "sha256_blocks", [n, n_blocks], sha.sha256_blocks,
             sha.sha256_blocks_plain, arg, check, n * n_blocks * SHA_BLOCK_OPS,
-            n * (64 * n_blocks + 32), card, 3)
+            n * (64 * n_blocks + 32), card)
     return rows
 
 
@@ -3830,6 +3862,163 @@ def node_phase(card, device: str, seed: int) -> dict:
             "samples": samples, "seconds": seconds}
 
 
+def web_get(port: int, path: str) -> tuple[int, str]:
+    """(status, body) of a GET on the web server at ``port``."""
+    import urllib.error
+    import urllib.request
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                    timeout=NODE_FLOW_S) as r:
+            return r.status, r.read().decode()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode()
+
+
+def read_party_web(label: str, handle) -> dict:
+    """A NodeWebServer over a CordaRPCClient to ``handle``'s node process:
+    every DRIVER_ROUTES answer checked; returns the B2 dispatches and the
+    signatures a launch of that process's profiler."""
+    from corda_tpu_torch.client.rpc import CordaRPCClient
+    from corda_tpu_torch.tools.webserver import NodeWebServer
+    client = CordaRPCClient(handle.host, handle.port)
+    server = NodeWebServer(client).start()
+    try:
+        got = {path: web_get(server.port, path) for path in DRIVER_ROUTES}
+    finally:
+        server.stop()
+        client.close()
+    bad = {path: got[path] for path in DRIVER_ROUTES if got[path][0] != 200}
+    if bad:
+        raise SystemExit(f"driver: {label}'s web server answered {bad}")
+    if json.loads(got["/healthz"][1]) != {"status": "ok"}:
+        raise SystemExit(f"driver: {label}'s /healthz {got['/healthz']}")
+    ready = json.loads(got["/readyz"][1])
+    if ready.get("ready") is not True:
+        raise SystemExit(f"driver: {label} is not ready: {ready}")
+    if "# TYPE corda_tpu_" not in got["/metrics"][1]:
+        raise SystemExit(f"driver: {label}'s /metrics holds no corda_tpu_ "
+                         "family")
+    vault = json.loads(got["/api/vault"][1])
+    flows = json.loads(got["/api/flows"][1])
+    if not isinstance(vault, list) or not any(
+            "CashIssueFlow" in f for f in flows):
+        raise SystemExit(f"driver: {label}'s /api/vault or /api/flows: "
+                         f"{got['/api/vault'][1][:200]} {flows}")
+    profile = json.loads(got["/debug/profile"][1])
+    split = profile["kernels"].get("ed25519.split", {})
+    occupancy = profile["occupancy"].get("ed25519", {})
+    if split.get("dispatches", 0) == 0:
+        raise SystemExit(f"driver: {label}'s process launched B2 no time: "
+                         f"{profile['kernels']}")
+    return {"b2_dispatches": split["dispatches"],
+            "b2_signatures": occupancy.get("live_total", 0),
+            "signatures_per_launch": occupancy.get("live_total", 0)
+            / max(1, occupancy.get("batches", 0)),
+            "vault_states": len(vault), "ready_checks": ready["checks"]}
+
+
+def driver_phase(card, device: str, seed: int) -> dict:
+    """Phase 7i: a cluster of node processes started by the port's driver on
+    ``device``, driven through the RPC client, the load test, the web
+    server and the shell (see the module docstring)."""
+    import io
+    import shutil
+    import corda_tpu_torch.finance  # noqa: F401 — client-side wire types
+    from corda_tpu_torch.testing.driver import driver
+    from corda_tpu_torch.tools.loadtest import run_driver_cluster_load
+    from corda_tpu_torch.tools.shell import Shell
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_driver_")
+    boot, restart = {}, {}
+    try:
+        t0 = time.perf_counter()
+        with driver(tmp, startup_timeout_s=DRIVER_STARTUP_S,
+                    device=device) as dsl:
+            boot["map"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            notary = dsl.start_notary_node()
+            boot["notary"] = time.perf_counter() - t0
+
+            def start_party(who):
+                t1 = time.perf_counter()
+                handle = dsl.start_node(f"O={who}, L=London, C=GB",
+                                        verifier_type="Tpu",
+                                        host_crossover=0)
+                boot[who.lower()] = time.perf_counter() - t1
+                return handle
+            # the two parties boot at once: each loads the kernels and
+            # holds them on known answers in its own process
+            with ThreadPoolExecutor(2) as starts:
+                parties = list(starts.map(start_party, ("Alice", "Bob")))
+            dsl.wait_for_network(4)
+            alice, bob = parties
+            notary_party = alice.rpc.notary_identities()[0]
+            if str(notary_party.name) != notary.name:
+                raise SystemExit(f"driver: the notary is {notary_party}")
+
+            start_restart = dsl.restart_node
+
+            def timed_restart(handle):
+                t1 = time.perf_counter()
+                new = start_restart(handle)
+                restart["seconds"] = time.perf_counter() - t1
+                return new
+            dsl.restart_node = timed_restart
+            report = run_driver_cluster_load(
+                dsl, parties, notary_party, iterations=DRIVER_ITERATIONS,
+                seed=seed, kill_restart_at=DRIVER_KILL_AT)
+            if not report["conserved"] or \
+                    report["flows"] < DRIVER_ITERATIONS:
+                raise SystemExit(f"driver: the load failed: {report}")
+            bob2 = parties[1]
+            if bob2 is bob or bob.process.poll() is None or \
+                    "seconds" not in restart:
+                raise SystemExit("driver: Bob was not killed and restarted")
+            if str(bob2.rpc.node_identity().legal_identity.name) != bob.name:
+                raise SystemExit("driver: Bob's restarted process does not "
+                                 "answer RPC as Bob")
+
+            webs = {"alice": read_party_web("Alice", alice),
+                    "bob": read_party_web("Bob (restarted)", bob2)}
+
+            me = alice.rpc.node_identity().legal_identity
+            before = alice.rpc.get_cash_balances().get("USD", 0)
+            out = io.StringIO()
+            line = (f"flow start CashIssueFlow amount: "
+                    f"{DRIVER_SHELL_CENTS // 100}.{DRIVER_SHELL_CENTS % 100:02d}"
+                    f" USD, issuer_ref: 0x2a, recipient: {me.name}, notary: "
+                    f"{notary_party.name}")
+            if not Shell(alice.rpc, out=out).execute(line):
+                raise SystemExit("driver: the shell exited")
+            after = alice.rpc.get_cash_balances().get("USD", 0)
+            text = out.getvalue()
+            if after - before != DRIVER_SHELL_CENTS or "error" in \
+                    text.lower() or "cannot bind" in text:
+                raise SystemExit(f"driver: the shell's issuance moved Alice "
+                                 f"from {before} to {after}: {text}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    seconds = time.perf_counter() - t_phase
+    out = {"card": card, "device": device, "processes": 4,
+           "boot_s": boot, "kill_restart_s": restart["seconds"],
+           "flows": report["flows"], "flows_per_s": report["value"],
+           "elapsed_s": report["elapsed_s"],
+           "issued_total": report["issued_total"],
+           "held_total": report["held_total"],
+           "conserved": report["conserved"],
+           "iterations": DRIVER_ITERATIONS,
+           "kill_restart_at": DRIVER_KILL_AT,
+           "shell_issued_cents": DRIVER_SHELL_CENTS,
+           "parties": webs, "seconds": seconds}
+    log(json.dumps({"path": "driver", **out}))
+    log(f"driver: 4 node processes, {report['flows']} flows at "
+        f"{report['value']} flows/s with Bob killed and restarted in "
+        f"{restart['seconds']:.2f} s; B2 dispatches Alice "
+        f"{webs['alice']['b2_dispatches']}, Bob (restarted) "
+        f"{webs['bob']['b2_dispatches']}; phase {seconds:.1f} s")
+    return out
+
+
 # ---------------------------------------------------------------------------
 # B7 (Ed25519 Shamir and windowed ladders) and B10 (SIMM margin)
 # ---------------------------------------------------------------------------
@@ -4007,8 +4196,8 @@ def b10_kernel_phase(dev, card, seed: int) -> dict:
     a fresh process (b10_kernel_ms; the window launches no other kernel).
     ``issue_ms`` is
     the CUDA-event time of back-to-back wrapper calls (a call is tens of
-    microseconds, so the host's issue of it shows there); the plain
-    version's and torch.sum(sens, 0)'s are timed likewise."""
+    microseconds, so the host's issue of it shows there); torch.sum(sens,
+    0)'s is timed likewise. The plain version is held, not timed."""
     import torch
     from corda_tpu_torch.samples import simm_valuation as simm
     rw, corr = simm.model_tensors(dev)
@@ -4049,14 +4238,12 @@ def b10_kernel_phase(dev, card, seed: int) -> dict:
         issue_ms = time_cuda(calls(lambda: simm.margin(sens, rw, corr)),
                              RUNS) / B6_TIMED_CALLS
         ms = b10_kernel_ms(n, seed + n)
-        plain_ms = time_cuda(calls(lambda: simm.margin_plain(sens, rw, corr)),
-                             RUNS) / B6_TIMED_CALLS
         library_ms = time_cuda(calls(lambda: torch.sum(sens, 0)),
                                RUNS) / B6_TIMED_CALLS
         nbytes = n * 48 + 4 * (12 + 144) + 4
         ops = 12 * n + 2 * 144 + 3 * 12
         bytes_s, ops_s = nbytes / HBM_BYTES_PER_S, ops / FP32_PER_S
-        rows[n] = {"ms": ms, "issue_ms": issue_ms, "plain_ms": plain_ms,
+        rows[n] = {"ms": ms, "issue_ms": issue_ms, "plain_ms": None,
                    "library_ms": library_ms,
                    "bound_ms": 1e3 * max(bytes_s, ops_s),
                    "bound_by": "bytes" if bytes_s >= ops_s else "operations",
@@ -5098,6 +5285,10 @@ def main() -> int:
     # -- phase 7h: the node runtime over TCP and the samples -----------------
     node_phase(card, "cuda", args.seed + 73)
     t_phase = log_phase("node", t_phase)
+
+    # -- phase 7i: a driver-started cluster of node processes ---------------
+    driver_phase(card, "cuda", args.seed + 79)
+    t_phase = log_phase("driver", t_phase)
 
     # -- phase 8: an earlier commit's B3, B5, B7 and B8 ----------------------
     if args.ab is not None:

@@ -7,9 +7,14 @@ registration in AbstractNode.registerWithNetworkMapIfConfigured
 (AbstractNode.kt:587-620). Registrations are SIGNED by the registering node's
 identity key and verified before acceptance (the reference's
 NodeRegistration.toWire signature model).
+
+A copy of the reference's module; the client's ``fetched`` event is set once
+the map has answered a fetch, so a restarting node can restore its
+checkpoints after its directory arrived.
 """
 from __future__ import annotations
 
+import threading
 from dataclasses import dataclass
 
 from ..core.crypto.signatures import Crypto, DigitalSignatureWithKey
@@ -147,6 +152,7 @@ class NetworkMapClient:
         import time
         self._serial = int(time.time() * 1000)
         self._fetch_session = 7001  # private response session
+        self.fetched = threading.Event()   # the map answered a fetch
         hub.network_service.add_message_handler(
             TopicSession(TOPIC_NETWORK_MAP_PUSH), self._on_push)
         hub.network_service.add_message_handler(
@@ -182,3 +188,4 @@ class NetworkMapClient:
     def _on_fetch_response(self, msg) -> None:
         for reg in deserialize(msg.data).registrations:
             self._apply(reg)
+        self.fetched.set()

@@ -3,8 +3,13 @@
 Reference parity: NodeStartup.main (node/internal/NodeStartup.kt:1-326) —
 parse config, print the banner, start the node, run until interrupted.
 
-A copy of the reference's module. The node runs on its configuration's
-``device`` ("cuda" unless a ``--config`` file names another).
+A copy of the reference's module with two flags of the port's own.
+``--device`` is the device of the node's own device work and its Tpu
+verifier: "cuda" (the card) unless given, or unless a ``--config`` file
+names another; without CUDA a node on "cuda" raises at boot, with no
+fallback to the CPU. ``--host-crossover`` (``--verifier-type Tpu`` only)
+sets the batcher's crossover, as the worker's flag of that name does:
+batches below it verify on the host.
 """
 from __future__ import annotations
 
@@ -41,6 +46,14 @@ def main(argv=None) -> int:
                         help="with --verifier-type Tpu: shard device "
                              "batches over the first N local CUDA "
                              "devices")
+    parser.add_argument("--device", default=None,
+                        help="device of the node's device work and its Tpu "
+                             "verifier (default: the --config file's, else "
+                             "cuda, the card; cpu runs the plain kernels)")
+    parser.add_argument("--host-crossover", type=int, default=None,
+                        help="with --verifier-type Tpu: batches below this "
+                             "run on the host (default: the batcher's "
+                             "measured crossover)")
     parser.add_argument("--cordapp", action="append", default=None,
                         help="extra module to load as a cordapp (repeatable)")
     parser.add_argument("--quiet", action="store_true")
@@ -62,10 +75,18 @@ def main(argv=None) -> int:
             mesh_devices=args.mesh_devices)
         if args.cordapp:
             config.cordapps = config.cordapps + args.cordapp
+    if args.device is not None:
+        config.device = args.device
+    if args.host_crossover is not None and config.verifier_type != "Tpu":
+        parser.error("--host-crossover requires --verifier-type Tpu")
 
     if not args.quiet:
         print(BANNER)
-    node = Node(config).start()
+    node = Node(config)
+    if args.host_crossover is not None:
+        node.services.verifier_service.batcher.host_crossover = \
+            args.host_crossover
+    node.start()
     # the driver greps for this line to know the node is ready
     print(f"NODE READY {node.party.name} {config.host}:{node.messaging.port}",
           flush=True)

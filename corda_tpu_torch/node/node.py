@@ -11,7 +11,12 @@ the request, observables served as polled snapshots).
 A copy of the reference's module. ``NodeConfiguration.device`` (default
 "cuda", raising without CUDA) is the device the node's own device work and
 its ``verifier_type="Tpu"`` service run on; the default cordapp is the port's
-finance package.
+finance package. An RPC result the codec refuses (floats: metric and
+profiler snapshots) goes to the client as its JSON text (``JsonResult``),
+where the reference's node answers with an error. A node with checkpoints
+restores them once the network map has answered its fetch (the reference's
+restores at once, and a flow that ends a session with a peer the directory
+does not hold yet fails the boot).
 """
 from __future__ import annotations
 
@@ -23,7 +28,8 @@ from dataclasses import dataclass, field
 
 from ..core.crypto.keys import KeyPair, PrivateKey, PublicKey, generate_keypair
 from ..core.identity import Party
-from ..core.serialization import deserialize, register_type, serialize
+from ..core.serialization import (SerializationError, deserialize,
+                                  register_type, serialize)
 from ..flows.library import install_core_flows
 from ..network.messaging import TopicSession
 from ..network.netmap import NetworkMapClient, NetworkMapService
@@ -39,6 +45,9 @@ from .statemachine import StateMachineManager
 log = logging.getLogger(__name__)
 
 TOPIC_RPC = "rpc.requests"
+#: how long a restarting node waits for the network map's directory before
+#: it restores its checkpoints
+MAP_FETCH_WAIT_S = 30.0
 
 
 @dataclass
@@ -138,12 +147,23 @@ class Observation:
     payload: object
 
 
+@dataclass(frozen=True)
+class JsonResult:
+    """An RPC result the codec cannot carry, as its JSON text: the codec
+    refuses floats (consensus data), and metric and profiler snapshots and
+    the /debug reports hold rates and durations. The port's CordaRPCClient
+    returns the parsed value."""
+
+    text: str
+
+
 register_type("rpc.RpcRequest", RpcRequest,
               to_fields=lambda r: [r.request_id, r.method, list(r.args), r.reply_to],
               from_fields=lambda f: RpcRequest(f[0], f[1], list(f[2]), f[3]))
 register_type("rpc.RpcResponse", RpcResponse)
 register_type("rpc.FeedHandle", FeedHandle)
 register_type("rpc.Observation", Observation)
+register_type("rpc.JsonResult", JsonResult)
 
 
 class Node:
@@ -330,6 +350,15 @@ class Node:
             self.network_map_client.subscribe()
             self.network_map_client.register()
             self.network_map_client.fetch()
+            # a restored flow may end its sessions at once, and a session's
+            # peer resolves through the directory: restore checkpoints only
+            # once the map has answered the fetch
+            if (self.smm.checkpoints.get_all_checkpoints()
+                    and not self.network_map_client.fetched.wait(
+                        MAP_FETCH_WAIT_S)):
+                log.warning("network map %s did not answer in %.0f s; "
+                            "restoring checkpoints without its directory",
+                            self.config.network_map_name, MAP_FETCH_WAIT_S)
         self.smm.start()
         log.info("node %s started on %s:%s", self.party.name,
                  self.config.host, self.messaging.port)
@@ -352,8 +381,18 @@ class Node:
             log.exception("malformed RPC request dropped")
             return
         try:
-            resp_bytes = serialize(
-                RpcResponse(req.request_id, self._dispatch_rpc(req), None))
+            result = self._dispatch_rpc(req)
+            try:
+                resp_bytes = serialize(
+                    RpcResponse(req.request_id, result, None))
+            except SerializationError as refused:
+                # floats: a snapshot of rates and durations goes as JSON
+                try:
+                    text = json.dumps(result)
+                except (TypeError, ValueError):
+                    raise refused from None
+                resp_bytes = serialize(
+                    RpcResponse(req.request_id, JsonResult(text), None))
         except Exception as e:
             # serialization of the RESULT may fail too — the client must still
             # get a typed error instead of a silent timeout

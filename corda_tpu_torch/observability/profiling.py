@@ -8,7 +8,10 @@ kernels are built once per process at first use, so here:
   (how many times its kernel library was built in this process). A growth
   across a call means THIS call paid the build: the call's wall time is
   booked under ``compiles``/``compile_s`` (the snapshot keys stay the JAX
-  package's) and a ``kernel.compile`` span lands in the trace ring.
+  package's) and a ``kernel.compile`` span lands in the trace ring. Other
+  callables are accounted as the JAX recorder accounts them: by their
+  compile cache's size (``_cache_size()``) where they expose one, else by a
+  novel argument-shape signature.
 - **launches + device wall time** — per-kernel launch counts
   (``dispatches``) and wall-time totals, split into the launch half (async
   enqueue) and the device wait (the CUDA event wait in ``finish_batch``),
@@ -134,6 +137,9 @@ class KernelProfiler:
         # id(device value) -> kernel name, for finish-time attribution
         self._pending: OrderedDict = OrderedDict()
         self._warm_compiles = 0
+        # fallback build detection for callables without build_count or
+        # _cache_size: kernel name -> set of seen arg-shape signatures
+        self._seen_sigs: dict[str, set] = {}
         self.overlap = OverlapTracker()
         # shared histograms — publish() mirrors these into registries, so
         # one process-wide distribution feeds every /metrics surface
@@ -148,15 +154,22 @@ class KernelProfiler:
              **kwargs):
         """Invoke ``fn(*args, **kwargs)`` under the recorder.
 
-        ``fn`` is a kernel wrapper with a ``build_count()`` attribute. The
-        call's wall time is booked as build time when ``build_count()`` grew
-        across it, as a warm launch otherwise. ``live``/``capacity``/
-        ``scheme`` record batch occupancy for the padded device batch."""
-        before = fn.build_count()
+        The call's wall time is booked as build time when ``fn``'s
+        ``build_count()`` (a kernel wrapper's) or ``_cache_size()`` (a
+        compile cache's) grew across it, or, for other callables, when this
+        argument-shape signature is new; as a warm launch otherwise.
+        ``live``/``capacity``/``scheme`` record batch occupancy for the
+        padded device batch."""
+        probe = getattr(fn, "build_count", None) or getattr(
+            fn, "_cache_size", None)
+        before = probe() if probe is not None else None
         t0 = time.perf_counter()
         out = fn(*args, **kwargs)
         dt = time.perf_counter() - t0
-        compiled = fn.build_count() > before
+        if probe is not None:
+            compiled = probe() > before
+        else:
+            compiled = self._novel_signature(name, args)
         with self._lock:
             st = self._kernels.get(name)
             if st is None:
@@ -180,6 +193,17 @@ class KernelProfiler:
             self.record_occupancy(scheme or name, live, capacity)
         self.note_pending(out, name)
         return out
+
+    def _novel_signature(self, name: str, args) -> bool:
+        sig = tuple(
+            (getattr(a, "shape", None), str(getattr(a, "dtype", type(a))))
+            for a in args)
+        with self._lock:
+            seen = self._seen_sigs.setdefault(name, set())
+            if sig in seen:
+                return False
+            seen.add(sig)
+            return True
 
     # -- occupancy ----------------------------------------------------------
     def record_occupancy(self, scheme: str, live: int, capacity: int) -> None:
@@ -320,6 +344,7 @@ class KernelProfiler:
             self._occupancy.clear()
             self._pending.clear()
             self._warm_compiles = 0
+            self._seen_sigs.clear()
         self.overlap = OverlapTracker()
         self.dispatch_hist = Histogram()
         self.device_wait_hist = Histogram()

@@ -4,8 +4,9 @@ the same names): the dummy contract and state, the expectation DSL
 device=...)``, default "cuda"), the fault-injection harness
 (``testing.faults``, imported as a module), and the random-data generator
 and generated ledgers (``testing.generator``, ``testing.generated_ledger``),
-and the ledger DSL (``testing.ledger_dsl``, imported as a module). The
-in-process node runners are not ported yet."""
+the ledger DSL (``testing.ledger_dsl``, imported as a module), and the
+process driver and its runners (``testing.driver``, ``testing.runner``,
+imported as modules: ``DriverDSL(device=...)``, default "cuda")."""
 from .dummy import DummyContract, DummyState, DUMMY_NOTARY_NAME
 from .expect import expect, parallel, repeat, run_expectations, sequence
 from .mocknetwork import MockNetwork, MockNode, TestClock

@@ -82,7 +82,17 @@ SLICE_MODULES = ("corda_tpu_torch.flows", "corda_tpu_torch.flows.api",
                  "corda_tpu_torch.samples.attachment_demo",
                  "corda_tpu_torch.samples.simulation",
                  "corda_tpu_torch.samples.irs_demo",
-                 "corda_tpu_torch.samples.notary_demo")
+                 "corda_tpu_torch.samples.notary_demo",
+                 "corda_tpu_torch.client", "corda_tpu_torch.client.rpc",
+                 "corda_tpu_torch.client.jackson",
+                 "corda_tpu_torch.client.monitor",
+                 "corda_tpu_torch.tools.webserver",
+                 "corda_tpu_torch.tools.shell",
+                 "corda_tpu_torch.tools.explorer",
+                 "corda_tpu_torch.tools.demobench",
+                 "corda_tpu_torch.tools.loadtest",
+                 "corda_tpu_torch.testing.driver",
+                 "corda_tpu_torch.testing.runner")
 
 
 def test_the_scans_reach_the_flow_framework_packages():

@@ -124,14 +124,22 @@ SMOKE = dict(parties=2, coins_per_party=2, operations=8,
 
 @pytest.fixture(scope="module")
 def runs():
-    """{pkg: (report, {captured: inputs})}: a smoke scenario of each
-    package; the port's hands its report functions' inputs to a spy."""
+    """{pkg: (report, {captured: inputs}, traces)}: a smoke scenario of
+    each package; the port's hands its report functions' inputs to a spy,
+    and each package's tracer hands its traces to the stitching check."""
     out = {}
     for pkg in PKGS:
         lh = mod(pkg, "observability.ledger_harness")
         obs = mod(pkg, "observability.consensus_obs")
         seen = {}
+        traces = {}
         with pytest.MonkeyPatch.context() as mp:
+            stitch = lh.connected_commit_traces
+
+            def keep(found, *args, stitch=stitch, **kwargs):
+                traces.update(found)
+                return stitch(found, *args, **kwargs)
+            mp.setattr(lh, "connected_commit_traces", keep)
             if pkg == "corda_tpu_torch":
                 for name in ("ledger_critpath_fields",
                              "ledger_stage_percentiles",
@@ -143,7 +151,7 @@ def runs():
             kw = dict(SMOKE, device="cpu") if pkg == "corda_tpu_torch" \
                 else SMOKE
             report = lh.run_ledger_scenario(lh.LedgerScenarioConfig(**kw))
-        out[pkg] = (report, seen)
+        out[pkg] = (report, seen, traces)
     return out
 
 
@@ -198,20 +206,41 @@ def _commit_chains(spans) -> set:
     return chains
 
 
+def _chains_by_flow(pkg: str, traces: dict) -> dict:
+    """{root flow class without its package: the commit-path chains of
+    every stitched trace whose root ``flow.run`` is that flow}."""
+    lh = mod(pkg, "observability.ledger_harness")
+    out: dict = {}
+    for tid in lh.connected_commit_traces(traces):
+        spans = traces[tid]
+        ids = {s["span_id"] for s in spans}
+        for root in spans:
+            if root["name"] == "flow.run" and root["parent_id"] not in ids:
+                flow = root["tags"]["flow_type"].split(".", 1)[1]
+                out.setdefault(flow, set()).update(_commit_chains(spans))
+    return out
+
+
 def test_stitched_commit_path_matches_the_reference(runs):
     """The commit path's spans hang off the same parents in both
     packages' stitched traces: no stage or parent link of the reference's
-    is missing from the port's."""
-    ref = _commit_chains(runs["corda_tpu"][0]["trace_sample"])
-    port = _commit_chains(runs["corda_tpu_torch"][0]["trace_sample"])
-    assert ref and port == ref
+    is missing from the port's. Traces are compared by the flow at their
+    root (the notarised payments, the paper's issuance, the trade): which
+    transaction stitches first depends on timing, and under load a cold
+    process's first payments may fail for want of cash."""
+    ref = _chains_by_flow("corda_tpu", runs["corda_tpu"][2])
+    port = _chains_by_flow("corda_tpu_torch", runs["corda_tpu_torch"][2])
+    both_ran = sorted(ref.keys() & port.keys())
+    assert both_ran
+    for flow in both_ran:
+        assert ref[flow] and port[flow] == ref[flow], flow
 
 
 def test_report_functions_equal_on_the_ports_run(runs):
     """The reference's stage, critical-path and consensus functions give
     the port's own fields on the inputs the port's run handed its
     functions: its traces, its registry snapshot and its replicas."""
-    report, seen = runs["corda_tpu_torch"]
+    report, seen, _ = runs["corda_tpu_torch"]
     assert set(seen) == {"ledger_critpath_fields", "ledger_stage_percentiles",
                          "group_commit_fields", "ledger_shard_fields",
                          "ledger_raft_fields"}

@@ -7,7 +7,14 @@ scalar seams of ``ops/scalarprep.py`` (``mulmod``, ``mod512``, ``glv``,
 The seams' cases are those of tests/test_scalarprep.py and
 tests/test_r1_halfgcd.py (the same seeds, values and bounds), taken alone:
 the port's library is built by ``_build`` from native/scalarmath.cpp, the
-reference's is native/libscalarmath.so."""
+reference's is native/libscalarmath.so.
+
+Then the module scan: every module of the reference has a twin at the same
+path in the port, and each module of the reference's ``client/``,
+``tools/`` and ``testing/`` packages has its public names (every name not
+starting with ``_`` that is not a module) in the port's twin."""
+import importlib
+import inspect
 import json
 import pathlib
 import random
@@ -176,3 +183,38 @@ def test_r1p_mulfast_matches_the_reference(seams):
     for a, b in ops:
         assert port.r1p_mulfast(a, b) == ref.r1p_mulfast(a, b) == \
             a * b % p, (a, b)
+
+
+# -- the module scan ----------------------------------------------------------
+
+def _reference_modules(*dirs: str) -> list:
+    """Package-relative paths of the reference's modules (under ``dirs``
+    only, when given), ``__init__`` naming its package."""
+    root = REPO / "corda_tpu"
+    out = []
+    for path in sorted(root.rglob("*.py")):
+        rel = path.relative_to(root)
+        if dirs and rel.parts[0] not in dirs:
+            continue
+        parts = list(rel.with_suffix("").parts)
+        out.append(".".join(parts[:-1] if parts[-1] == "__init__" else parts))
+    return out
+
+
+def test_every_reference_module_has_a_twin():
+    root = REPO / "corda_tpu"
+    missing = [str(p.relative_to(root)) for p in sorted(root.rglob("*.py"))
+               if not (REPO / "corda_tpu_torch" / p.relative_to(root))
+               .is_file()]
+    assert missing == []
+    assert len(_reference_modules("client", "tools", "testing")) >= 27
+
+
+@pytest.mark.parametrize("path",
+                         _reference_modules("client", "tools", "testing"))
+def test_client_tools_and_testing_keep_the_reference_public_names(path):
+    ref = importlib.import_module(f"corda_tpu.{path}")
+    port = importlib.import_module(f"corda_tpu_torch.{path}")
+    public = {n for n, v in vars(ref).items()
+              if not n.startswith("_") and not inspect.ismodule(v)}
+    assert sorted(public - set(vars(port))) == []

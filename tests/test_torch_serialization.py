@@ -10,6 +10,7 @@ both packages under names of their own.
 import dataclasses
 import datetime
 import enum
+import importlib
 import random
 
 import msgpack
@@ -260,13 +261,28 @@ def test_every_component_type_serializes_identically():
         back = tser.deserialize(raw)
         assert tser.serialize(back) == raw, name
         assert jser.serialize(jser.deserialize(tser.serialize(back))) == raw
-    # the port's registered names (this module's test types aside) are
-    # the JAX package's, for classes of the same names
+    # the port's registered names (this module's test types and the port's
+    # own wire names aside) are the JAX package's, for classes of the same
+    # names; each port module that registered one has its JAX twin
+    # imported first, whatever other tests this process ran before
+    for name, (cls, _, _) in list(tcodec._REGISTRY.items()):
+        if cls.__module__.startswith("corda_tpu_torch."):
+            importlib.import_module(
+                "corda_tpu." + cls.__module__[len("corda_tpu_torch."):])
     for name, (cls, _, _) in tcodec._REGISTRY.items():
         if name.startswith("test_torch_serialization."):
             continue
+        if name in PORT_ONLY_WIRE_NAMES:
+            assert name not in jcodec._REGISTRY, name
+            continue
         assert name in jcodec._REGISTRY, name
         assert jcodec._REGISTRY[name][0].__name__ == cls.__name__, name
+
+
+#: Wire names only the port registers: an RPC result that the codec cannot
+#: carry (floats) crosses as JSON text, where the JAX package's node
+#: answers with an error (corda_tpu_torch/node/node.py ``JsonResult``).
+PORT_ONLY_WIRE_NAMES = ("rpc.JsonResult",)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -28,8 +28,9 @@ Phases (any failure exits non-zero; nothing is caught):
 1. probe   — card name and power limit (nvidia-smi), torch/CUDA versions,
              parallel build of the ten CUDA kernel libraries,
              libscalarmath, libkvlog and libraftcore (native/raftcore.cpp;
-             seconds, and nvcc's register/spill report); the native scalar
-             prep must be in use.
+             seconds, and nvcc's register/spill report), with B7
+             windowed's two lane-check builds for phase 2's b7_lanes step
+             started beside them; the native scalar prep must be in use.
 2. kernels — each kernel against its plain PyTorch version on the card at
              buckets 256, 1024 (the interactive batch), 4096 and 32768:
              B2 Ed25519 split-k, B3 secp256k1 hybrid GLV and B4 secp256r1
@@ -54,7 +55,17 @@ Phases (any failure exits non-zero; nothing is caught):
              threshold +-1 and every bucket (both variants timed in turns
              at the threshold). A freshly loaded signature
              library has also been held against its plain version on
-             known answers (ops/known_answers.py).
+             known answers (ops/known_answers.py). Then the b7_lanes step:
+             B7 windowed built twice with -DED25519_WINDOWED_LANE_CHECK
+             (started in phase 1), as shipped and with
+             -DED25519_WINDOWED_PAIR_AFFINE (X zi and Y zi one a lane),
+             each pair kernel on the known answers and at 1024, 4097 and
+             16384 items: both lanes' verdicts equal to the plain
+             version's and both lanes holding the same point, zi and
+             affine x and y on every item, and on the first 64 items zi
+             = Z^(p-2) and every step of fe_inv's chain equal to Python's
+             pow on both lanes; one line a build and size, and the step's
+             seconds.
              Then B10 (SIMM margin)
              on the demo book and seeded books of 1024, 2^16 and 2^20
              trades: equal to its plain version bit for bit (and so within
@@ -339,12 +350,12 @@ Phases (any failure exits non-zero; nothing is caught):
              each party's B2 dispatches and signatures a launch.
 8. ab      — only with --ab PARENT (a directory holding an earlier commit's
              corda_tpu_torch/csrc, e.g. unpacked by git archive): that
-             commit's B3, B5, both B7 and both B8 kernels built beside this
-             checkout's, each side's launcher bound by its own signature
-             in its source, and timed on the same inputs in turns at 256
-             to 32768 items (B5 and B8 Shamir for each curve; a side whose
-             launcher takes the lanes runs each lane variant as a side of
-             its own) after a raw bit-identity check, with each side's
+             commit's B2, B3, B4, B5, both B7 and both B8 kernels built
+             beside this checkout's, each side's launcher bound by its own
+             signature in its source, and timed on the same inputs in turns
+             at 256 to 32768 items (B5 and B8 Shamir for each curve; a side
+             whose launcher takes the lanes runs each lane variant as a
+             side of its own) after a raw bit-identity check, with each side's
              warps a multiprocessor and the parents' ptxas report; and the
              interactive 1k latency of the secp256k1 service path with the
              parent's B3 behind the wrapper and with this checkout's, in
@@ -535,7 +546,8 @@ MODE_SMALL = 1024
 #: A/B, and the order of its turns.
 AB_LIBS = {"secp256k1_hybrid": 7, "weierstrass_shamir": 4,
            "ed25519_shamir": 8, "weierstrass_windowed": 9,
-           "ed25519_windowed": 11, "secp256k1_glv": 3}
+           "ed25519_windowed": 11, "secp256k1_glv": 3, "ed25519_split": 10,
+           "secp256r1_split": 11}
 AB_BUCKETS = (256, 1024, 4096, 16384, 32768)
 AB_TURNS = ("parent", "change", "change", "parent")
 #: The B7 kernels: an adversarial batch of B7_DISTINCT signed items (1/16
@@ -4134,6 +4146,197 @@ def hold_b7_lanes(ed, name, prep, want, sizes, timed, dev, card) -> None:
                     "dispatcher_lanes": dispatched, "card": card}))
 
 
+#: The b7_lanes step: two diagnostic builds of B7 windowed
+#: (csrc/ed25519_windowed.cu, -D flags), as shipped (both lanes form X zi
+#: and Y zi) and with X zi | Y zi one a lane by pair_mul, each held at
+#: B7_LANE_SIZES and on the known answers.
+B7_LANE_BUILDS = {"as_is": ("ED25519_WINDOWED_LANE_CHECK",),
+                  "pair_affine": ("ED25519_WINDOWED_LANE_CHECK",
+                                  "ED25519_WINDOWED_PAIR_AFFINE")}
+B7_LANE_SIZES = (1024, 4097, 16384)
+#: Bits of the lane-check build's output byte: each lane's verdict, and
+#: whether both lanes hold the same words of the ladder's point, of zi and
+#: of the canonical affine x and y.
+B7_LANE_BITS = {"even_verdict": 0, "odd_verdict": 1, "point": 2, "zi": 3,
+                "affine_xy": 4}
+#: Items, lanes and values of the lane words (X, Y, Z, zi, x, y) and of the
+#: inversion's steps (the input, then the chain's 22 values) the build keeps.
+B7_LANE_ITEMS, B7_LANE_VALUES, B7_INV_STEPS = 64, 6, 23
+#: The power of fe_inv's input after each step (step 0 the input).
+B7_INV_POWERS = (1, 2, 8, 9, 11, 22, 2**5 - 1, (2**5 - 1) << 5, 2**10 - 1,
+                 (2**10 - 1) << 10, 2**20 - 1, (2**20 - 1) << 20, 2**40 - 1,
+                 (2**40 - 1) << 10, 2**50 - 1, (2**50 - 1) << 50, 2**100 - 1,
+                 (2**100 - 1) << 100, 2**200 - 1, (2**200 - 1) << 50,
+                 2**250 - 1, (2**250 - 1) << 5, 2**255 - 21)
+
+
+def start_b7_lane_builds(csrc: str | None = None,
+                         names=tuple(B7_LANE_BUILDS)) -> dict:
+    """nvcc, all at once, of the B7_LANE_BUILDS builds ``names`` of
+    ``csrc``/ed25519_windowed.cu (default: this checkout's) into
+    corda_tpu_torch/_build/diag/, named by a hash of the source, the
+    headers it includes and the flags (a library already there is
+    reused). Returns {build: (library path, its temporary path, process
+    or None)}."""
+    import hashlib
+    from corda_tpu_torch import _build
+    src = os.path.join(csrc or _build.CSRC, "ed25519_windowed.cu")
+    out_dir = os.path.join(_build.BUILD_DIR, "diag")
+    os.makedirs(out_dir, exist_ok=True)
+    started = {}
+    for build in names:
+        defines = B7_LANE_BUILDS[build]
+        flags = [*_build._NVCC_FLAGS, *(f"-D{d}" for d in defines)]
+        h = hashlib.sha256(" ".join(flags).encode())
+        for path in [src, *_build.include_closure([src])]:
+            with open(path, "rb") as f:
+                h.update(f.read())
+        out = os.path.join(out_dir, f"libed25519_windowed-{build}-"
+                                    f"{h.hexdigest()[:16]}.so")
+        tmp, proc = f"{out}.tmp{os.getpid()}", None
+        if not os.path.exists(out):
+            nvcc = _build.nvcc_path()
+            if nvcc is None:
+                raise SystemExit("b7_lanes: no nvcc")
+            proc = subprocess.Popen(
+                [nvcc, *flags, "-o", tmp, src],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        started[build] = (out, tmp, proc)
+    return started
+
+
+def finish_b7_lane_build(build: str, out: str, tmp: str, proc):
+    """The loaded library of a build :func:`start_b7_lane_builds` started,
+    its launcher and lane-word exports bound; raises SystemExit when nvcc
+    failed."""
+    import ctypes
+    if proc is not None:
+        text, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise SystemExit(f"b7_lanes: building {build} failed:\n{text}")
+        os.replace(tmp, out)
+    lib = ctypes.CDLL(out)
+    lib.ed25519_windowed_verify.restype = ctypes.c_int
+    lib.ed25519_windowed_verify.argtypes = (
+        [ctypes.c_void_p] * 12 + [ctypes.c_int64, ctypes.c_int,
+                                  ctypes.c_void_p])
+    for fn in ("ed25519_windowed_lane_words", "ed25519_windowed_inv_steps"):
+        if hasattr(lib, fn):
+            getattr(lib, fn).argtypes = [ctypes.c_void_p]
+    return lib
+
+
+def b7_lane_cases(ed, prep, dev, sizes=B7_LANE_SIZES) -> dict:
+    """{case: (device wire tensors, plain verdicts as uint8 numpy)}: the
+    known answers and ``prep`` (B7 windowed's prep of the adversarial
+    batch) tiled to each of ``sizes``."""
+    import numpy as np
+    from corda_tpu_torch.ops import known_answers as ka
+    *wire, _ = ed.prepare_batch_windowed(list(ka.ed25519_items()),
+                                         device_tables=False)
+    cases = {"known_answers": wire}
+    for n in sizes:
+        *wire, _ = take_batch(prep, B7_AXES["ed25519_windowed_verify"], n)
+        cases[str(n)] = wire
+    tabs = ed.windowed_table(dev)
+    out = {}
+    for case, wire in cases.items():
+        dargs = ed.b7_to_device(wire, dev)
+        plain = ed.verify_core_windowed_plain(*dargs, *tabs)
+        out[case] = (dargs, plain.cpu().numpy().astype(np.uint8))
+    return out
+
+
+def b7_lane_words(lib) -> dict:
+    """The lane words' checks of a lane-check build's last launch, on its
+    first B7_LANE_ITEMS items: the lanes whose zi is Z^(p-2), those whose
+    every inversion step equals Python's pow of the ladder's Z, and those
+    whose zi is the operand pair_mul picks after the inversion (X on the
+    even lane, Y on the odd one; the fault of ROADMAP §C.1). None where the
+    library keeps no such words."""
+    import numpy as np
+    p = 2**255 - 19
+
+    def val(w):
+        return sum(int(x) << (32 * i) for i, x in enumerate(w))
+    keys = ("zi_inverse_lanes", "chain_exact_lanes", "zi_is_pick_lanes")
+    if not hasattr(lib, "ed25519_windowed_inv_steps"):
+        return dict.fromkeys(keys)
+    words = np.zeros((B7_LANE_ITEMS, 2, B7_LANE_VALUES, 8), np.uint32)
+    steps = np.zeros((B7_LANE_ITEMS, 2, B7_INV_STEPS, 8), np.uint32)
+    if (lib.ed25519_windowed_lane_words(words.ctypes.data)
+            or lib.ed25519_windowed_inv_steps(steps.ctypes.data)):
+        raise SystemExit("b7_lanes: reading the lane words failed")
+    inverse = exact = pick = 0
+    for item in range(B7_LANE_ITEMS):
+        for lane in range(2):
+            z, zi = val(words[item, lane, 2]), val(words[item, lane, 3])
+            inverse += (zi - pow(z, p - 2, p)) % p == 0
+            exact += val(steps[item, lane, 0]) == z and all(
+                (val(steps[item, lane, k]) - pow(z, e, p)) % p == 0
+                for k, e in enumerate(B7_INV_POWERS))
+            pick += (words[item, lane, 3] == words[item, lane, lane]).all()
+    return dict(zip(keys, (inverse, exact, int(pick))))
+
+
+def b7_lane_rows(lib, cases: dict, tabs, dev) -> list:
+    """The pair kernel of a lane-check build on each case: one row a case
+    with its items, each lane's verdicts equal to the plain version's, the
+    items whose lanes agree on each value of B7_LANE_BITS, and (on the
+    B7_LANE_SIZES[0] case, over its first B7_LANE_ITEMS items) the lanes
+    whose zi and inversion steps are right (:func:`b7_lane_words`)."""
+    import torch
+    from corda_tpu_torch.ops import ed25519 as ed
+    rows = []
+    for case, (dargs, want) in cases.items():
+        n = int(want.shape[0])
+        code = torch.zeros(n, dtype=torch.uint8, device=dev)
+        rc = lib.ed25519_windowed_verify(
+            *(t.data_ptr() for t in (*ed.b7_flat(dargs), *tabs)),
+            code.data_ptr(), n, 2, torch.cuda.current_stream(dev).cuda_stream)
+        torch.cuda.synchronize()
+        if rc != 0:
+            raise SystemExit(f"b7_lanes: launch failed, cudaError {rc}")
+        c = code.cpu().numpy()
+        row = {"case": case, "items": n}
+        for name, bit in B7_LANE_BITS.items():
+            b = (c >> bit) & 1
+            row[name] = int((b == want).sum() if "verdict" in name
+                            else b.sum())
+        if case == str(B7_LANE_SIZES[0]):
+            row.update(b7_lane_words(lib))
+        rows.append(row)
+    return rows
+
+
+def b7_lanes_step(ed, builds: dict, prep, dev, card) -> None:
+    """Phase 2's b7_lanes step: each B7_LANE_BUILDS build (started by
+    :func:`start_b7_lane_builds`) on the known answers and at
+    B7_LANE_SIZES: every item's verdict on both lanes equal to the plain
+    version's, both lanes agreeing on the point, zi and the affine x and
+    y, and on the first B7_LANE_ITEMS items zi = Z^(p-2) and every
+    inversion step equal to Python's pow on both lanes, and no zi equal to
+    its lane's pick. One line a build and case, then the step's seconds;
+    any difference ends the run."""
+    t0 = time.perf_counter()
+    cases = b7_lane_cases(ed, prep, dev)
+    tabs = ed.windowed_table(dev)
+    for build, started in builds.items():
+        lib = finish_b7_lane_build(build, *started)
+        for row in b7_lane_rows(lib, cases, tabs, dev):
+            log(json.dumps({"b7_lanes": build, **row, "card": card}))
+            full = [v for k, v in row.items() if k in B7_LANE_BITS]
+            words = [row[k] for k in ("zi_inverse_lanes",
+                                      "chain_exact_lanes") if k in row]
+            if (any(v != row["items"] for v in full)
+                    or any(v != 2 * B7_LANE_ITEMS for v in words)
+                    or row.get("zi_is_pick_lanes", 0) != 0):
+                raise SystemExit(f"b7_lanes: the {build} build's lanes "
+                                 f"disagree on {row['case']}: {row}")
+    log(json.dumps({"step": "b7_lanes", "seconds": time.perf_counter() - t0,
+                    "card": card}))
+
+
 def simm_book(simm, n: int, seed: int):
     """The demo book at 16 trades, a seeded one otherwise."""
     return simm.demo_portfolio() if n == 16 else simm.demo_portfolio(n, seed)
@@ -4569,12 +4772,13 @@ def build_parent_kernels(parent: str) -> tuple[dict, dict]:
     return libs, sources
 
 
-def ab_phase(parent: str, dev, card, seed: int, ec_base, b7,
+def ab_phase(parent: str, dev, card, seed: int, ec_base, b7, ed_base,
              wanted=lambda name: True) -> dict:
-    """Phase 8 (--ab): an earlier commit's B3, B5 (both curves), B7 Shamir
-    and windowed, and B8 Shamir (both curves) and GLV against this
+    """Phase 8 (--ab): an earlier commit's B2, B3, B4, B5 (both curves), B7
+    Shamir and windowed, and B8 Shamir (both curves) and GLV against this
     checkout's. Kernels: at each AB_BUCKETS bucket, on phase 2's
-    adversarial batches (B7: its tiled batch), every side's raw verdicts
+    adversarial batches (B7: its tiled batch; B2: ``ed_base`` tiled with
+    1/16 tampered), every side's raw verdicts
     equal the plain version's, then CUDA-event medians in turns (forward,
     then backward); each side's launcher is bound by its own source's
     signature, and a side whose launcher takes the lanes runs as two
@@ -4598,7 +4802,9 @@ def ab_phase(parent: str, dev, card, seed: int, ec_base, b7,
             "weierstrass_windowed": wc.load_windowed_kernel(),
             "ed25519_shamir": ed.load_shamir_kernel(),
             "ed25519_windowed": ed.load_windowed_kernel(),
-            "secp256k1_glv": wc.load_glv_kernel()}
+            "secp256k1_glv": wc.load_glv_kernel(),
+            "ed25519_split": ed.load_kernel(),
+            "secp256r1_split": wc.load_r1_split_kernel()}
     mine_src = {}
     for target in AB_LIBS:
         with open(os.path.join(_build.CSRC, f"{target}.cu")) as f:
@@ -4637,6 +4843,13 @@ def ab_phase(parent: str, dev, card, seed: int, ec_base, b7,
                 cases["secp256k1_glv_verify"] = (
                     wc.wire_to_device(wire, dev), wc.verify_core_glv_plain,
                     variants("secp256k1_glv", bucket))
+            else:
+                *wire, _, _ = wc.prepare_batch_r1_split(curve, items)
+                cases["secp256r1_split_verify"] = (
+                    (*wc.wire_to_device(wire, dev),
+                     *wc.r1_split_tables(dev)),
+                    wc.verify_core_r1_split_plain,
+                    variants("secp256r1_split", bucket))
             *wire, _ = wc.prepare_batch(curve, items)
             args = wc.wire_to_device(wire, dev)
             cases[f"{name}_shamir_verify"] = (
@@ -4649,6 +4862,11 @@ def ab_phase(parent: str, dev, card, seed: int, ec_base, b7,
                 args, lambda *a, name=name:
                 wc.verify_core_windowed_single_plain(*a, name),
                 variants("weierstrass_windowed", bucket, CURVE_IDS[name]))
+        items, _ = tile(ed_base, bucket, seed + 7 * bucket)
+        *wire, _ = ed.prepare_batch_split(items)
+        cases["ed25519_split_verify"] = (
+            (*ed.wire_to_device(*wire, device=dev), *ed.split_tables(dev)),
+            ed.verify_core_split_plain, variants("ed25519_split", bucket))
         *wire, _ = take_batch(b7[0]["ed25519_shamir_verify"],
                               B7_AXES["ed25519_shamir_verify"], bucket)
         cases["ed25519_shamir_verify"] = (
@@ -4739,7 +4957,8 @@ def main() -> int:
                          "and print no result line (a short check of "
                          "kernels on the card)")
     ap.add_argument("--ab", default=None, metavar="PARENT",
-                    help="also time an earlier commit's B3, B5, B7 and B8 "
+                    help="also time an earlier commit's B2, B3, B4, B5, B7 "
+                         "and B8 "
                          "kernels "
                          "(PARENT/corda_tpu_torch/csrc) against this "
                          "checkout's, and the secp256k1 interactive "
@@ -4784,7 +5003,16 @@ def main() -> int:
                              text=True, timeout=60).stdout.strip()
         log(f"nvcc: {out.splitlines()[-1] if out else 'no version'}")
     t0 = time.perf_counter()
-    _build.build_all()
+    # B7 windowed's two lane-check builds compile beside the libraries
+    lane_builds = (start_b7_lane_builds()
+                   if wanted("ed25519_windowed_verify") else {})
+    try:
+        _build.build_all()
+    except BaseException:
+        for _, _, proc in lane_builds.values():
+            if proc is not None:
+                proc.kill()
+        raise
     log(f"build: {time.perf_counter() - t0:.3f} s wall, per library "
         f"{json.dumps(_build.BUILD_SECONDS)}")
     for lib in dict.fromkeys([k["lib"] for k in KERNELS.values()]
@@ -4927,6 +5155,10 @@ def main() -> int:
                           + (ROW_BUCKETS[name],),
                           B7_THRESHOLD + (ROW_BUCKETS[name], 32768),
                           dev, card)
+    # both layouts of B7 windowed's pair kernel, lane by lane
+    if lane_builds:
+        b7_lanes_step(ed, lane_builds, b7[0]["ed25519_windowed_verify"],
+                      dev, card)
     log("library_ms: null — no PyTorch call computes Ed25519 or ECDSA "
         "verification")
     if only is not None:
@@ -4934,7 +5166,7 @@ def main() -> int:
         log(json.dumps({"kernels_checked": sorted(only)}))
         if args.ab is not None:
             ab_phase(args.ab, dev, card, args.seed + 53, ec_base, b7,
-                     wanted)
+                     base, wanted)
             log_phase("ab", t_phase)
         return 0
     b10_rows = b10_kernel_phase(dev, card, args.seed + 43)
@@ -5290,9 +5522,9 @@ def main() -> int:
     driver_phase(card, "cuda", args.seed + 79)
     t_phase = log_phase("driver", t_phase)
 
-    # -- phase 8: an earlier commit's B3, B5, B7 and B8 ----------------------
+    # -- phase 8: an earlier commit's B2, B3, B4, B5, B7 and B8 --------------
     if args.ab is not None:
-        ab_phase(args.ab, dev, card, args.seed + 53, ec_base, b7)
+        ab_phase(args.ab, dev, card, args.seed + 53, ec_base, b7, base)
         log_phase("ab", t_phase)
 
 

@@ -14,13 +14,19 @@
 //   results, for checking the arithmetic against big integers as host
 //   C++.
 // The one-thread kernels keep the earlier fields (csrc/field25519.cuh,
-// csrc/field_k1.cuh, csrc/field_p256.cuh): built on these fields, large
-// one-thread kernels (B5's secp256r1 kernel, B7's windowed kernel, B2's
-// and B4's one-lane kernels) rejected every valid signature on the card
-// in some builds and not in others, on either implementation, with the
-// same register and stack counts and after edits that change no value,
-// and nvcc crashed on one of them; the host build was always right
-// (PERF.md §6).
+// csrc/field_k1.cuh, csrc/field_p256.cuh). Built on these fields, B7
+// windowed's pair kernel with X zi and Y zi one a lane gave wrong verdicts
+// on either implementation: the Comba products' inner loops stayed rolled
+// (see mul256_comba), so their operands lived in local memory, and nvcc
+// (12.9, sm_90a) gave fe_inv's result zi, a kernel local written through a
+// reference, the slot of the next product's first operand; the PTX stored
+// that operand over zi before reading zi back (ROADMAP §C.1,
+// csrc/diag/frame_slot_repro.cu). The loops now unroll, and fe_inv returns
+// by value. Large one-thread kernels on these fields (B5's secp256r1
+// kernel, B7's windowed kernel, B2's and B4's one-lane kernels) once
+// rejected every valid signature in some builds; B2's and B7's one-lane
+// kernels on the Comba field were exact on nvcc 12.9, so that failure is
+// not reproduced (PERF.md §7).
 #pragma once
 #include <stdint.h>
 
@@ -255,6 +261,14 @@ __device__ __forceinline__ void addsq16(uint32_t t[16], const uint32_t a[8]) {
 // 512-bit a*b, product-scanning: column k accumulates a_i * b_(k-i) in
 // (c2 : c1 : c0); a column of up to 8 products and the carry in stays
 // below 2^96.
+//
+// The inner loops of both products run over all 8 words with a guard, not
+// over bounds that depend on k: nvcc (12.9) left loops with such bounds
+// rolled despite the pragma, so their operands were indexed at run time
+// and lived in local memory, where it gave a local written through a
+// reference the slot of the next product's operand (ROADMAP §C.1,
+// csrc/diag/frame_slot_repro.cu). With constant bounds every loop unrolls
+// and no field element leaves the registers.
 __device__ __forceinline__ void mul256_comba(uint32_t t[16],
                                              const uint32_t a[8],
                                              const uint32_t b[8]) {
@@ -262,8 +276,8 @@ __device__ __forceinline__ void mul256_comba(uint32_t t[16],
 #pragma unroll
   for (int k = 0; k < 15; ++k) {
 #pragma unroll
-    for (int i = (k < 8 ? 0 : k - 7); i <= (k < 8 ? k : 7); ++i)
-      mac3(c0, c1, c2, a[i], b[k - i]);
+    for (int i = 0; i < 8; ++i)
+      if (k - i >= 0 && k - i < 8) mac3(c0, c1, c2, a[i], b[k - i]);
     t[k] = c0;
     c0 = c1;
     c1 = c2;
@@ -282,8 +296,8 @@ __device__ __forceinline__ void sqr256_comba(uint32_t t[16],
 #pragma unroll
   for (int k = 1; k < 14; ++k) {
 #pragma unroll
-    for (int i = (k < 8 ? 0 : k - 7); 2 * i < k; ++i)
-      mac3(c0, c1, c2, a[i], a[k - i]);
+    for (int i = 0; i < 8; ++i)
+      if (k - i < 8 && 2 * i < k) mac3(c0, c1, c2, a[i], a[k - i]);
     t[k] = c0;
     c0 = c1;
     c1 = c2;

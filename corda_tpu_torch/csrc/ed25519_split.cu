@@ -34,7 +34,8 @@
 //   (csrc/curve_ed25519.cuh, csrc/field25519.cuh, formulas called). There
 //   the pair's repeated work (below) costs more than its shorter chain
 //   saves (at 32768 signatures the pairs are slower, PERF.md §6). The
-//   one-lane kernel keeps the earlier field: in large one-thread kernels the Comba field gave wrong verdicts on the card in some builds
+//   one-lane kernel keeps the earlier field: in large one-thread kernels
+//   the Comba field once gave wrong verdicts on the card
 //   (csrc/carry.cuh).
 // A freshly built library runs known answers through both kernels against
 // the plain version before its first verdict (ops/known_answers.py).
@@ -243,8 +244,8 @@ __global__ void __launch_bounds__(kBlock, 4) ed25519_split_verify_kernel(
   }
   ed_add_niels(acc, nrows, odd);
 
-  fe zi, x, y;
-  fe_inv(zi, acc.Z);
+  const fe zi = fe_inv(acc.Z);
+  fe x, y;
   fe_mul(x, acc.X, zi);
   fe_mul(y, acc.Y, zi);
   fe_canon(x, x);

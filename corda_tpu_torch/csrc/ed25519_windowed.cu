@@ -37,24 +37,31 @@
 //   cp.async (pair_fetch_row3, 96 bytes a pair) while the step's four
 //   windows run, and the next window's digits are loaded while a window
 //   runs. The inversion and the two affine products run on both lanes, as
-//   in B2's pair kernel: handing X zi and Y zi one to each lane after the
+//   in B2's pair kernel. Handing X zi and Y zi one to each lane after the
 //   inversion (pair_mul, -DED25519_WINDOWED_PAIR_AFFINE) gave wrong
-//   verdicts on the card in every build tried, while host builds were
-//   exact. tools/b7_lane_check.py (-DED25519_WINDOWED_LANE_CHECK) shows
-//   that in that build both lanes hold the same ladder point but a
-//   different zi on every item, and in this one the same point, zi,
-//   affine x and y and verdict. Lanes past the ragged edge run the last
-//   item again and store nothing. __launch_bounds__(128, 4): 128
+//   verdicts on the card while the Comba products kept their operands in
+//   local memory and fe_inv wrote zi through a reference: nvcc gave zi the
+//   frame slot of pair_mul's first operand, so each lane's zi became its
+//   pick of X or Y (ROADMAP §C.1). With the products unrolled
+//   (csrc/carry.cuh) and fe_inv returning by value both layouts are
+//   exact; the lane-check builds
+//   (-DED25519_WINDOWED_LANE_CHECK, chip_smoke.py's b7_lanes step,
+//   tools/b7_lane_check.py) hold every item's lanes to the same point, zi,
+//   affine x and y and verdict, and the first 64 items' zi and inversion
+//   steps to Python's integers. One product a lane is the shorter chain;
+//   this layout is kept until it is timed. Lanes past the ragged edge run
+//   the last item again and store nothing. __launch_bounds__(128, 4): 128
 //   registers a lane, 16 warps a multiprocessor.
 // - One lane a signature, above kPairItems, where the card is full and the
 //   work the pair repeats on both lanes costs more than its shorter chain
 //   saves: the same schedule on csrc/curve_ed25519.cuh's field
-//   (csrc/field25519.cuh; the Comba field gave wrong verdicts in some
-//   builds of large one-thread kernels, csrc/carry.cuh), the -A table
-//   whole in local memory (2 KB). It computes T = E H in every doubling,
-//   though only a window's last doubling feeds an addition: a variant that
-//   skipped it in the other three (a T-less doubling, 189 products a
-//   signature) ran 0.5 ms slower at 32768 on an H100, in turns.
+//   (csrc/field25519.cuh; large one-thread kernels on the Comba field once
+//   gave wrong verdicts, csrc/carry.cuh), the -A table whole in local
+//   memory (2 KB). It computes T = E H in every doubling, though only a
+//   window's last doubling feeds an addition: a variant that skipped it in
+//   the other three (a T-less doubling, 189 products a signature) ran
+//   0.5 ms slower at 32768 on an NVIDIA H100 80GB HBM3 at 700.00 W, in
+//   turns.
 // A freshly built library runs known answers through both kernels against
 // the plain version before its first verdict (ops/known_answers.py).
 //
@@ -82,6 +89,32 @@
 #include <stdint.h>
 
 #include "ed25519_windows.cuh"
+
+#ifdef ED25519_WINDOWED_LANE_CHECK
+// Diagnostic build (tools/b7_lane_check.py, chip_smoke.py's b7_lanes): the
+// pair kernel keeps, for its first kLaneWordItems items and on each lane,
+// the ladder's X, Y, Z, zi and the canonical affine x and y (lane_words)
+// and the value of every step of fe_inv's chain (inv_steps: the input,
+// then steps 1-22), 8 words each.
+namespace pairs {
+static const int kLaneWordItems = 64;
+static const int kLaneWordValues = 6;
+static const int kInvSteps = 23;
+__device__ uint32_t lane_words[kLaneWordItems][2][kLaneWordValues][8];
+__device__ uint32_t inv_steps[kLaneWordItems][2][kInvSteps][8];
+
+// Called by fe_inv (FE_INV_STEP) on every lane: thread t holds lane t & 1
+// of item t >> 1.
+__device__ __forceinline__ void inv_step_put(int k, const uint32_t *v) {
+  const int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (t < 2 * kLaneWordItems) {
+#pragma unroll
+    for (int w = 0; w < 8; ++w) inv_steps[t >> 1][t & 1][k][w] = v[w];
+  }
+}
+}  // namespace pairs
+#define FE_INV_STEP(k, value) inv_step_put(k, (value).v)
+#endif
 
 namespace pairs {
 #include "curve_ed25519_pair.cuh"
@@ -170,6 +203,12 @@ __device__ __forceinline__ bool pair_same(const fe &m) {
     d |= m.v[k] ^ __shfl_xor_sync(PAIR_FULL_MASK, m.v[k], 1);
   return d == 0;
 }
+
+__device__ __forceinline__ void lane_words_put(int64_t item, bool odd, int k,
+                                               const fe &m) {
+#pragma unroll
+  for (int w = 0; w < 8; ++w) lane_words[item][odd][k][w] = m.v[w];
+}
 #endif
 
 __global__ void __launch_bounds__(kBlock, 4) ed25519_windowed_verify_kernel(
@@ -243,8 +282,8 @@ __global__ void __launch_bounds__(kBlock, 4) ed25519_windowed_verify_kernel(
   // accept: one inversion and both affine products on both lanes (as B2's
   // pair kernel), then the canonical y against the wire's and x's parity
   // against its sign bit
-  fe zi, x, y, r;
-  fe_inv(zi, acc.Z);
+  const fe zi = fe_inv(acc.Z);
+  fe x, y, r;
 #ifdef ED25519_WINDOWED_PAIR_AFFINE
   pair_mul<Field25519>(x, y, acc.X, zi, acc.Y, zi, odd);
 #else
@@ -267,6 +306,14 @@ __global__ void __launch_bounds__(kBlock, 4) ed25519_windowed_verify_kernel(
                   pair_same(acc.T)) << 2;
   v |= (uint32_t)pair_same(zi) << 3;
   v |= (uint32_t)(pair_same(x) & pair_same(y)) << 4;
+  if (item < kLaneWordItems) {
+    lane_words_put(item, odd, 0, acc.X);
+    lane_words_put(item, odd, 1, acc.Y);
+    lane_words_put(item, odd, 2, acc.Z);
+    lane_words_put(item, odd, 3, zi);
+    lane_words_put(item, odd, 4, x);
+    lane_words_put(item, odd, 5, y);
+  }
 #endif
   if (item < n && !odd) ok[i] = (uint8_t)v;
 }
@@ -325,5 +372,20 @@ int ed25519_windowed_block(void) { return kBlock; }
 const char *ed25519_windowed_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
+
+#ifdef ED25519_WINDOWED_LANE_CHECK
+// Copy the pair kernel's lane words and inversion steps of its last launch
+// (u32 [kLaneWordItems][2 lanes][kLaneWordValues or kInvSteps][8]) to the
+// host buffer dst; each returns the cudaError.
+int ed25519_windowed_lane_words(void *dst) {
+  return (int)cudaMemcpyFromSymbol(dst, pairs::lane_words,
+                                   sizeof(pairs::lane_words));
+}
+
+int ed25519_windowed_inv_steps(void *dst) {
+  return (int)cudaMemcpyFromSymbol(dst, pairs::inv_steps,
+                                   sizeof(pairs::inv_steps));
+}
+#endif
 
 }  // extern "C"

@@ -1,5 +1,5 @@
-// Arithmetic mod p = 2^255 - 19 for the lane-pair kernel of B2 (B1, p25519;
-// the one-thread kernels keep csrc/field25519.cuh).
+// Arithmetic mod p = 2^255 - 19 for the lane-pair kernels of B2 and both
+// B7 kernels (B1, p25519; the one-lane kernels keep csrc/field25519.cuh).
 //
 // Replaces the p25519 half of corda_tpu/ops/field.py (mul, sqr, add, sub,
 // mul_const, canon, inv25519), which kept 16 x 16-bit limbs in u64 lanes
@@ -13,6 +13,9 @@
 // endian, not reduced below p). Every operation returns a value in
 // [0, 2^256); only fe_canon reduces below p. 2^256 = 38 (mod p), so a carry
 // out of the top word re-enters word 0 times 38.
+//
+// The two __noinline__ functions, fe_sqr_n and fe_inv, take and return
+// their element by value (see fe_inv).
 #pragma once
 #include <stdint.h>
 
@@ -103,10 +106,11 @@ __device__ __forceinline__ void fe_sqr(fe &o, const fe &a) {
   fe_reduce512(o, t);
 }
 
-__device__ __noinline__ void fe_sqr_n(fe &o, const fe &a, int n) {
-  o = a;
+// a^(2^n). Takes and returns its element by value, as fe_inv does.
+__device__ __noinline__ fe fe_sqr_n(fe a, int n) {
 #pragma unroll 1
-  for (int i = 0; i < n; ++i) fe_sqr(o, o);
+  for (int i = 0; i < n; ++i) fe_sqr(a, a);
+  return a;
 }
 
 // v - p when v >= p, else v (branch-free).
@@ -132,30 +136,72 @@ __device__ __forceinline__ void fe_canon(fe &o, const fe &a) {
   fe_cond_sub_p(o);
 }
 
+// Hands each value of fe_inv's chain to a diagnostic build (step 0 the
+// input, steps 1-22 the 11 squaring calls and 11 products in order);
+// nothing otherwise.
+#ifndef FE_INV_STEP
+#define FE_INV_STEP(k, value)
+#endif
+
 // a^(p-2) by the curve25519 addition chain: 254 squarings + 11 multiplies
 // (the chain of field.py inv25519); 0 maps to 0.
-__device__ __noinline__ void fe_inv(fe &o, const fe &a) {
-  fe z2, z9, z11, t, z_5_0, z_10_0, z_20_0, z_50_0, z_100_0;
+//
+// By value, as fe_sqr_n: an element a kernel passes by reference to a
+// __noinline__ function lives in the kernel's local-memory frame. While
+// the Comba products kept their operands there too (csrc/carry.cuh), nvcc
+// (12.9, sm_90a) gave zi, this function's output in B7 windowed's pair
+// kernel built with -DED25519_WINDOWED_PAIR_AFFINE, the frame slot of the
+// first operand of the product after the call: the PTX stored the lane's
+// pick of X or Y over zi, then read zi back, so every valid signature
+// failed (ROADMAP §C.1, csrc/diag/frame_slot_repro.cu). Passed and
+// returned in .param space, zi stays in registers and no slot of the
+// caller's frame is addressed by the call.
+__device__ __noinline__ fe fe_inv(fe a) {
+  fe z2, z9, z11, t, z_5_0, z_10_0, z_20_0, z_50_0, z_100_0, o;
+  FE_INV_STEP(0, a);
   fe_sqr(z2, a);                    // 2
-  fe_sqr_n(t, z2, 2);               // 8
+  FE_INV_STEP(1, z2);
+  t = fe_sqr_n(z2, 2);              // 8
+  FE_INV_STEP(2, t);
   fe_mul(z9, t, a);                 // 9
+  FE_INV_STEP(3, z9);
   fe_mul(z11, z9, z2);              // 11
+  FE_INV_STEP(4, z11);
   fe_sqr(t, z11);                   // 22
+  FE_INV_STEP(5, t);
   fe_mul(z_5_0, t, z9);             // 2^5 - 1
-  fe_sqr_n(t, z_5_0, 5);
+  FE_INV_STEP(6, z_5_0);
+  t = fe_sqr_n(z_5_0, 5);
+  FE_INV_STEP(7, t);
   fe_mul(z_10_0, t, z_5_0);         // 2^10 - 1
-  fe_sqr_n(t, z_10_0, 10);
+  FE_INV_STEP(8, z_10_0);
+  t = fe_sqr_n(z_10_0, 10);
+  FE_INV_STEP(9, t);
   fe_mul(z_20_0, t, z_10_0);        // 2^20 - 1
-  fe_sqr_n(t, z_20_0, 20);
+  FE_INV_STEP(10, z_20_0);
+  t = fe_sqr_n(z_20_0, 20);
+  FE_INV_STEP(11, t);
   fe_mul(t, t, z_20_0);             // 2^40 - 1
-  fe_sqr_n(t, t, 10);
+  FE_INV_STEP(12, t);
+  t = fe_sqr_n(t, 10);
+  FE_INV_STEP(13, t);
   fe_mul(z_50_0, t, z_10_0);        // 2^50 - 1
-  fe_sqr_n(t, z_50_0, 50);
+  FE_INV_STEP(14, z_50_0);
+  t = fe_sqr_n(z_50_0, 50);
+  FE_INV_STEP(15, t);
   fe_mul(z_100_0, t, z_50_0);       // 2^100 - 1
-  fe_sqr_n(t, z_100_0, 100);
+  FE_INV_STEP(16, z_100_0);
+  t = fe_sqr_n(z_100_0, 100);
+  FE_INV_STEP(17, t);
   fe_mul(t, t, z_100_0);            // 2^200 - 1
-  fe_sqr_n(t, t, 50);
+  FE_INV_STEP(18, t);
+  t = fe_sqr_n(t, 50);
+  FE_INV_STEP(19, t);
   fe_mul(t, t, z_50_0);             // 2^250 - 1
-  fe_sqr_n(t, t, 5);
+  FE_INV_STEP(20, t);
+  t = fe_sqr_n(t, 5);
+  FE_INV_STEP(21, t);
   fe_mul(o, t, z11);                // 2^255 - 21
+  FE_INV_STEP(22, o);
+  return o;
 }

@@ -11,10 +11,14 @@ batch holds valid signatures, tampered ones, and items whose host precheck
 fails, whose wire rows the prep zeroes or fills with placeholders (and for
 B3 and B5 signatures whose x(R) = r + n, for B5 and B8 keys G and -G). The
 raw verdicts (before the precheck mask) must agree on every row, or the library
-is refused with :class:`BuildError`. The lane-pair kernels run on the Comba
-field, which was exact in every build tried; large one-thread kernels on the
-same field were miscompiled in some builds for a reason not yet found
-(PERF.md §7), so no build gives verdicts unchecked.
+is refused with :class:`BuildError`. The guard is for the compiler: while
+the Comba products kept their operands in local memory, nvcc (12.9, sm_90a)
+gave a kernel local that a ``__noinline__`` function wrote through a
+reference (``fe_inv``'s result in B7 windowed's pair kernel, laid out one
+product a lane) the slot of the next product's operand, and every valid
+signature failed; the products now unroll and ``fe_inv`` returns by value
+(ROADMAP §C.1). Large one-thread kernels on that field once failed in some
+builds too (PERF.md §7), so no build gives verdicts unchecked.
 
 The batches are made from fixed seeds with the package's own signing code.
 """

@@ -43,8 +43,7 @@ def test_this_trees_launchers(smoke, target):
 def test_ab_libs_count_each_launchers_wire_pointers(smoke):
     """AB_LIBS gives each library's wire pointers: the launcher's pointer
     parameters less the verdict and the stream."""
-    assert set(smoke.AB_LIBS) == set(TREE) - {"ed25519_split",
-                                              "secp256r1_split"}
+    assert set(smoke.AB_LIBS) == set(TREE)
     for target, n_ptrs in smoke.AB_LIBS.items():
         src = (CSRC / f"{target}.cu").read_text()
         params = re.search(rf"\bint\s+{target}_verify\s*\(([^)]*)\)",

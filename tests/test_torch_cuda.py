@@ -916,6 +916,37 @@ def test_b7_windowed_lane_variants_match_plain_version_at_every_size(
     assert list(ok.cpu().numpy() & precheck) == want
 
 
+@pytest.mark.parametrize("build", ["as_is", "pair_affine"])
+def test_b7_windowed_lane_check_builds_agree_lane_by_lane(cuda, build):
+    """B7 windowed's pair kernel built with -DED25519_WINDOWED_LANE_CHECK,
+    as shipped and with -DED25519_WINDOWED_PAIR_AFFINE (X zi and Y zi one
+    a lane; wrong on every valid item while fe_inv returned zi through a
+    reference), on the known answers and adversarial items at 1024 and
+    4097: both lanes' verdicts equal the plain version's, both lanes hold
+    the same point, zi and affine x and y on every item, and on the first
+    64 items zi = Z^(p-2) and every inversion step is right on both
+    lanes."""
+    import importlib.util
+    import pathlib
+    from corda_tpu_torch.ops import ed25519 as ed
+    root = pathlib.Path(__file__).resolve().parent.parent
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  root / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    items, _ = _ed_adversarial(256, 1919)
+    prep = ed.prepare_batch_windowed(items, device_tables=False)
+    lib = cs.finish_b7_lane_build(
+        build, *cs.start_b7_lane_builds(names=[build])[build])
+    cases = cs.b7_lane_cases(ed, prep, cuda, sizes=(1024, 4097))
+    rows = cs.b7_lane_rows(lib, cases, ed.windowed_table(cuda), cuda)
+    assert [r["case"] for r in rows] == ["known_answers", "1024", "4097"]
+    for row in rows:
+        assert all(row[k] == row["items"] for k in cs.B7_LANE_BITS), row
+    assert rows[1]["zi_inverse_lanes"] == 2 * cs.B7_LANE_ITEMS
+    assert rows[1]["chain_exact_lanes"] == 2 * cs.B7_LANE_ITEMS
+
+
 def test_b7_windowed_wrapper_counts_the_lanes_its_size_selects(cuda):
     """verify_core_windowed picks lane pairs up to the threshold and one
     lane above it, and counts each launch under the lanes it ran."""

@@ -69,9 +69,28 @@ void fe_op(int op, const uint32_t *a, const uint32_t *b, uint32_t *o) {
   else if (op == 2) fe_add(r, x, y);
   else if (op == 3) fe_sub(r, x, y);
   else if (op == 4) fe_mul_small(r, x, 2);
-  else fe_inv(r, x);
+  else r = fe_inv(x);
   memcpy(o, r.v, 32);
 }
+}
+"""
+
+
+# fe_inv's chain with its FE_INV_STEP hook recording each step, as the
+# lane-check build of csrc/ed25519_windowed.cu records it on the card (the
+# header inside a namespace of its own, beside ops.cpp's copy).
+STEPS = """#include "cuda_stub.h"
+static uint32_t steps[23][8];
+static void record_step(int k, const uint32_t *v) { memcpy(steps[k], v, 32); }
+#define FE_INV_STEP(k, value) record_step(k, (value).v)
+namespace traced {
+#include "field25519_comba.cuh"
+}
+extern "C" void fe_inv_steps(const uint32_t *a, uint32_t *out) {
+  traced::fe x;
+  memcpy(x.v, a, 32);
+  traced::fe_inv(x);
+  memcpy(out, steps, sizeof steps);
 }
 """
 
@@ -84,13 +103,16 @@ def lib(tmp_path_factory):
     d = tmp_path_factory.mktemp("field_words")
     (d / "cuda_stub.h").write_text(STUB)
     (d / "ops.cpp").write_text(OPS)
+    (d / "steps.cpp").write_text(STEPS)
     out = d / "libfield_words.so"
     subprocess.run([cxx, "-O1", "-std=c++17", "-shared", "-fPIC", "-I", str(d),
-                    "-I", str(CSRC), "-o", str(out), str(d / "ops.cpp")],
+                    "-I", str(CSRC), "-o", str(out), str(d / "ops.cpp"),
+                    str(d / "steps.cpp")],
                    check=True, capture_output=True, timeout=120)
     so = ctypes.CDLL(str(out))
     for fn in (so.p256_op, so.fe_op, so.k1_op):
         fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 3
+    so.fe_inv_steps.argtypes = [ctypes.c_void_p] * 2
     return so
 
 
@@ -159,3 +181,30 @@ def test_secp256k1_fold_small_product_and_canon_match_python_integers(lib):
         got = _call(lib.k1_op, 4, a)
         assert got < M and (got - 21 * a) % PK1 == 0, a
         assert _call(lib.k1_op, 5, a) == a % PK1, a
+
+
+#: The power of fe_inv's input after each step of its chain: step 0 the
+#: input, then z2, 2^3, z9, z11, 22, z_5_0, ..., 2^255 - 21 = p - 2.
+INV_POWERS = (1, 2, 8, 9, 11, 22, 2**5 - 1, (2**5 - 1) << 5, 2**10 - 1,
+              (2**10 - 1) << 10, 2**20 - 1, (2**20 - 1) << 20, 2**40 - 1,
+              (2**40 - 1) << 10, 2**50 - 1, (2**50 - 1) << 50, 2**100 - 1,
+              (2**100 - 1) << 100, 2**200 - 1, (2**200 - 1) << 50,
+              2**250 - 1, (2**250 - 1) << 5, P25519 - 2)
+#: The first inputs of the inverse-chain cases; the rest are seeded words.
+INV_EDGES = (0, 1, 2, 19, P25519 - 1, P25519, P25519 + 1, M - 1, M - 38,
+             2**255)
+
+
+@pytest.mark.parametrize("case", range(64))
+def test_p25519_inverse_chain_steps_match_python_pow(lib, case):
+    """Each of the 22 values of fe_inv's addition chain (11 squaring calls,
+    11 products; the values the card's lane-check build records) lies in
+    [0, 2^256) and equals the input to its power mod p, for edge inputs
+    (0, 1, p - 1, p, p + 1, 2^256 - 1, ...) and seeded 256-bit words."""
+    a = (INV_EDGES[case] if case < len(INV_EDGES)
+         else random.Random(1900 + case).randrange(M))
+    out = np.zeros((len(INV_POWERS), 8), dtype=np.uint32)
+    lib.fe_inv_steps(_words(a).ctypes.data, out.ctypes.data)
+    for k, power in enumerate(INV_POWERS):
+        got = sum(int(w) << (32 * i) for i, w in enumerate(out[k]))
+        assert got < M and (got - pow(a, power, P25519)) % P25519 == 0, k
